@@ -1,0 +1,570 @@
+"""PyTorch query engine: an index held in device memory, scored by the
+fused gather -> AND -> count kernel.
+
+The port of `cobs_tpu/query/engine.py`'s device-resident path. The whole
+index lives on the device as ONE dense matrix of 32-bit words
+``[total_rows + 1, W]`` (torch.int32, bit for bit the u32 words):
+
+- classic index: total_rows = signature_size, W = ceil(row_size/4) words;
+- compact index: the per-page sub-matrices are stacked row-wise;
+  ``row_offsets[p]`` locates page p's block and every page is padded to
+  the same word width (reference: cobs/construction/compact_index.cpp:
+  137-150), so classic is the P=1 case of one engine;
+- the last row is all zero: padding terms point at it.
+
+A query batch becomes host hashes (numpy XXH64), then a row-index tensor
+[B, T, h, P] padded to the longest query with zero-row terms, then one
+launch of `ops.query_kernel.gather_and_count`, then either the full score
+vector per query (`score_batch`) or the top k (score, doc) pairs
+(`score_topk`) in the reference's (score desc, doc asc) order.
+"""
+
+import dataclasses
+import functools
+import os
+
+import numpy as np
+import torch
+
+from cobs_tpu_torch.core.canonical import canonicalize_batch
+from cobs_tpu_torch.core.xxh64 import xxh64_multi_seed
+from cobs_tpu_torch.fmt import classic as fmt_classic
+from cobs_tpu_torch.fmt import compact as fmt_compact
+from cobs_tpu_torch.fmt.magic import FileIOError
+from cobs_tpu_torch.ingest.util import sliding_windows
+from cobs_tpu_torch.ops.query_kernel import gather_and_count
+from cobs_tpu_torch.settings import settings
+from cobs_tpu_torch.utils.timer import Timer
+
+#: padding of the word axis, kept equal to cobs_tpu's so the padded
+#: layout, the run-coalescing decisions and the padded score tensor are
+#: identical in both packages (the kernel itself takes any W >= 1)
+_WORD_ALIGN = 128
+
+
+def _pad_words(n: int) -> int:
+    return max(_WORD_ALIGN, -(-n // _WORD_ALIGN) * _WORD_ALIGN)
+
+
+def _bytes_to_words(rows: np.ndarray, word_width: int) -> np.ndarray:
+    """uint8 [R, row_bytes] -> uint32 [R, word_width] little-endian.
+
+    LSB-first byte bits + little-endian words mean: document index ==
+    word_index * 32 + bit_index, with no bit shuffling.
+    """
+    R, row_bytes = rows.shape
+    out = np.zeros((R, word_width * 4), dtype=np.uint8)
+    out[:, :row_bytes] = rows
+    return out.view("<u4")
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device` (None = settings.device) as a torch.device; raises when
+    CUDA is asked for and absent, so nothing carries on on the CPU."""
+    dev = torch.device(settings.device if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is not "
+                           "available (torch.cuda.is_available() is "
+                           "False)")
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class DocLayout:
+    """Host-side mapping from device score slots to PUBLIC doc slots.
+
+    The device score tensor is page-major with `w32` slots per page
+    (word_width * 32, including per-page word padding); the public
+    layout is the reference's 8-aligned slots per ORIGINAL page with
+    no word padding (reference: cobs/query/classic_search.cpp:413-429).
+    Uniform indexes (classic, and compact merged by a uniform factor)
+    have equal `page_docs`; run-coalesced compact indexes carry true
+    per-page doc counts and offsets.
+    """
+
+    w32: int
+    page_docs: np.ndarray     # int64 [P] real doc slots per page
+    doc_offsets: np.ndarray   # int64 [P+1] public slot offsets
+
+    @property
+    def num_pages(self) -> int:
+        return len(self.page_docs)
+
+    @property
+    def counts_size(self) -> int:
+        return int(self.doc_offsets[-1])
+
+    @property
+    def uniform_docs(self) -> int | None:
+        """docs-per-page when every page holds the same count."""
+        d = self.page_docs
+        if len(d) and (d == d[0]).all():
+            return int(d[0])
+        return None
+
+
+@dataclasses.dataclass
+class DeviceIndex:
+    """An index resident in device memory."""
+
+    #: int32 [total_rows + 1, W]: the u32 words bit for bit; the last row
+    #: is all zero (gather target for padding terms)
+    matrix: torch.Tensor
+    #: int64 [P] row offset of each page block
+    row_offsets: np.ndarray
+    #: uint64 [P] per-page signature sizes
+    sig_sizes: np.ndarray
+    #: words per page row
+    word_width: int
+    term_size: int
+    canonicalize: int
+    num_hashes: int
+    page_size: int  # bytes per page row
+    file_names: list[str]
+    path: str = ""
+    #: int64 [P] real doc slots per (merged) page; None = uniform
+    #: 8*page_size (set by the run-coalesced compact load)
+    page_docs: np.ndarray | None = None
+
+    @property
+    def num_pages(self) -> int:
+        return len(self.sig_sizes)
+
+    @property
+    def doc_layout(self) -> DocLayout:
+        if self.page_docs is None:
+            pd = np.full(self.num_pages, 8 * self.page_size, dtype=np.int64)
+        else:
+            pd = np.asarray(self.page_docs, dtype=np.int64)
+        off = np.zeros(self.num_pages + 1, dtype=np.int64)
+        np.cumsum(pd, out=off[1:])
+        return DocLayout(self.word_width * 32, pd, off)
+
+    @property
+    def counts_size(self) -> int:
+        """Score slots including 8-alignment padding
+        (reference: cobs/query/classic_index/search_file.cpp:21-23)."""
+        return self.doc_layout.counts_size
+
+    @property
+    def zero_row(self) -> int:
+        return self.matrix.shape[0] - 1
+
+    @functools.cached_property
+    def valid_mask(self) -> torch.Tensor:
+        """bool [P*W*32] on the device: True for slots of real documents."""
+        return torch.from_numpy(_doc_valid_mask(
+            self.doc_layout, len(self.file_names))).to(self.matrix.device)
+
+    @classmethod
+    def from_arrays(cls, matrix, row_offsets, sig_sizes, word_width: int,
+                    term_size: int, canonicalize: int, num_hashes: int,
+                    page_size: int, file_names, page_docs=None, device=None,
+                    path: str = "") -> "DeviceIndex":
+        """An index over a ready matrix: a numpy uint32 array or a torch
+        uint32/int32 tensor [total_rows + 1, word_width] whose last row
+        is zero. It is copied or moved to `device` (None =
+        settings.device)."""
+        dev = resolve_device(device)
+        if isinstance(matrix, np.ndarray):
+            if matrix.dtype != np.uint32:
+                raise TypeError(f"matrix must be uint32, got {matrix.dtype}")
+            t = torch.from_numpy(np.array(matrix).view(np.int32))
+        else:
+            t = matrix.view(torch.int32) if matrix.dtype == torch.uint32 \
+                else matrix
+            if t.dtype != torch.int32:
+                raise TypeError(f"matrix must be uint32 or int32, got "
+                                f"{matrix.dtype}")
+        if t.dim() != 2 or t.shape[1] != word_width:
+            raise ValueError(f"matrix {tuple(t.shape)} is not "
+                             f"[rows + 1, word_width={word_width}]")
+        return cls(matrix=t.to(dev).contiguous(),
+                   row_offsets=np.asarray(row_offsets, dtype=np.int64),
+                   sig_sizes=np.asarray(sig_sizes, dtype=np.uint64),
+                   word_width=int(word_width), term_size=int(term_size),
+                   canonicalize=int(canonicalize),
+                   num_hashes=int(num_hashes), page_size=int(page_size),
+                   file_names=list(file_names), path=str(path),
+                   page_docs=None if page_docs is None
+                   else np.asarray(page_docs, dtype=np.int64))
+
+    @classmethod
+    def from_reference(cls, ix, device=None) -> "DeviceIndex":
+        """The same index as a `cobs_tpu` DeviceIndex `ix`, read by duck
+        typing (np.asarray of its matrix), so both packages score one
+        matrix."""
+        return cls.from_arrays(
+            np.asarray(ix.matrix), ix.row_offsets, ix.sig_sizes,
+            ix.word_width, ix.term_size, ix.canonicalize, ix.num_hashes,
+            ix.page_size, ix.file_names, page_docs=ix.page_docs,
+            device=device, path=ix.path)
+
+    @classmethod
+    def from_classic(cls, path, device=None) -> "DeviceIndex":
+        dev = resolve_device(device)
+        with open(path, "rb") as f:
+            h = fmt_classic.ClassicIndexHeader.deserialize(f)
+            off = f.tell()
+        W = _pad_words(-(-h.row_size // 4))
+        matrix = _load_matrix_striped(path, off, h.signature_size,
+                                      h.row_size, W, dev)
+        return cls(matrix=matrix,
+                   row_offsets=np.zeros(1, dtype=np.int64),
+                   sig_sizes=np.asarray([h.signature_size],
+                                        dtype=np.uint64),
+                   word_width=W, term_size=h.term_size,
+                   canonicalize=h.canonicalize, num_hashes=h.num_hashes,
+                   page_size=h.row_size, file_names=h.file_names,
+                   path=str(path))
+
+    @classmethod
+    def from_compact(cls, path, device=None) -> "DeviceIndex":
+        dev = resolve_device(device)
+        h, off = fmt_compact.read_compact_header(path)
+        if not h.parameters:
+            raise FileIOError("compact index has no pages")
+        num_hashes = h.parameters[0].num_hashes
+        for p in h.parameters:
+            if p.num_hashes != num_hashes:
+                raise FileIOError(
+                    "compact index with non-uniform num_hashes unsupported")
+        sig_sizes = [p.signature_size for p in h.parameters]
+        page_size = h.page_size
+        # pages with equal Bloom sizes probe the same row per hash, so
+        # they merge COLUMN-wise into one wider page bit-exactly
+        # (fmt_compact.coalesce_factor): one gather per term instead of
+        # one per page. The same environment switches as cobs_tpu's
+        # loader: COBS_TPU_COALESCE_PAGES=0 turns merging off,
+        # COBS_TPU_RUN_CAP caps merged runs (unset/auto = cost model,
+        # 0 = uncapped, N = forced cap).
+        coalesce = os.environ.get("COBS_TPU_COALESCE_PAGES", "1") != "0"
+        m = fmt_compact.coalesce_factor(sig_sizes) if coalesce else 1
+        page_docs = None
+        if m > 1:
+            matrix, sig_sizes = _load_matrix_coalesced(
+                path, off, sig_sizes, page_size, dev,
+                [(i, m) for i in range(0, len(sig_sizes), m)])
+            page_size *= m
+            W = matrix.shape[1]
+        else:
+            runs = (fmt_compact.coalesce_runs(sig_sizes)
+                    if coalesce else [])
+            if any(n > 1 for _, n in runs):
+                cap_env = os.environ.get("COBS_TPU_RUN_CAP", "")
+                if cap_env in ("", "auto"):
+                    cap = _best_run_cap(runs, page_size)
+                else:
+                    cap = int(cap_env)
+                    if cap < 0:
+                        raise ValueError(f"COBS_TPU_RUN_CAP must be >= 0 "
+                                         f"(0 = uncapped), got {cap}")
+                    cap = cap or max(n for _, n in runs)
+                runs = _split_runs(runs, cap)
+            if any(n > 1 for _, n in runs) and _runs_worthwhile(
+                    runs, sig_sizes, page_size):
+                # equal-Bloom RUNS merge column-wise bit-exactly; merged
+                # pages span variable numbers of original pages, tracked
+                # by per-page doc counts (DocLayout)
+                matrix, sig_sizes = _load_matrix_coalesced(
+                    path, off, sig_sizes, page_size, dev, runs)
+                page_docs = np.asarray(
+                    [8 * page_size * n for _, n in runs], dtype=np.int64)
+                page_size *= max(n for _, n in runs)
+                W = matrix.shape[1]
+            else:
+                W = _pad_words(-(-page_size // 4))
+                matrix = _load_matrix_striped(path, off,
+                                              int(sum(sig_sizes)),
+                                              page_size, W, dev)
+        offsets = np.zeros(len(sig_sizes), dtype=np.int64)
+        np.cumsum(sig_sizes[:-1], out=offsets[1:])
+        return cls(matrix=matrix, row_offsets=offsets,
+                   sig_sizes=np.asarray(sig_sizes, dtype=np.uint64),
+                   word_width=W, term_size=h.term_size,
+                   canonicalize=h.canonicalize, num_hashes=num_hashes,
+                   page_size=page_size, file_names=h.file_names,
+                   path=str(path), page_docs=page_docs)
+
+    @classmethod
+    def from_file(cls, path, device=None) -> "DeviceIndex":
+        if fmt_classic.is_classic_file(path):
+            return cls.from_classic(path, device)
+        if fmt_compact.is_compact_file(path):
+            return cls.from_compact(path, device)
+        raise FileIOError(f'Could not open index path "{path}"')
+
+    def row_indices(self, hashes: np.ndarray) -> np.ndarray:
+        """uint64 hashes [T, h] -> int32 row indices [T, h, P]
+        (per-page modulo, reference:
+        cobs/query/compact_index/mmap_search_file.cpp:55-66)."""
+        idx = (hashes[:, :, None] % self.sig_sizes[None, None, :]
+               + self.row_offsets[None, None, :].astype(np.uint64))
+        if self.matrix.shape[0] <= np.iinfo(np.int32).max:
+            return idx.astype(np.int32)
+        raise ValueError("index too large for int32 row addressing")
+
+
+#: payload bytes per host-to-device copy when loading an index: bounds the
+#: extra host memory to one stripe (the reference's analog is the mmap
+#: load that never copies twice, reference: cobs/util/query.cpp:38-88)
+_UPLOAD_STRIPE_BYTES = 64 << 20
+
+
+def _load_matrix_striped(path, payload_off: int, total_rows: int,
+                         row_bytes: int, W: int,
+                         device: torch.device) -> torch.Tensor:
+    """Load an index payload into a device int32 [total_rows + 1, W]
+    matrix stripe by stripe (the last row stays the all-zero gather
+    target)."""
+    buf = torch.zeros((total_rows + 1, W), dtype=torch.int32, device=device)
+    rows_per = max(1, _UPLOAD_STRIPE_BYTES // (W * 4))
+    with open(path, "rb") as f:
+        f.seek(payload_off)
+        r = 0
+        while r < total_rows:
+            n = min(rows_per, total_rows - r)
+            raw = np.fromfile(f, dtype=np.uint8, count=n * row_bytes)
+            if raw.size != n * row_bytes:
+                raise FileIOError("index payload truncated")
+            words = _bytes_to_words(raw.reshape(n, row_bytes), W)
+            buf[r:r + n].copy_(torch.from_numpy(words.view(np.int32)))
+            r += n
+    return buf
+
+
+def _best_run_cap(runs, page_size: int) -> int:
+    """Pages-per-merged-page cap minimizing padded gather bytes/term.
+
+    Run-length merging pads every merged page to the WIDEST run, so a
+    skewed run profile gathers mostly zero padding. Splitting long runs
+    at a cap trades more gathers for narrower rows: per-term gathered
+    bytes at cap m are sum(ceil(len_i / m)) * padded_bytes(m * page_size).
+    Among caps within 5% of the cheapest, the widest wins (the same rule
+    as cobs_tpu, so both packages load the same layout)."""
+    def padb(m):
+        return _pad_words(-(-(page_size * m) // 4)) * 4
+
+    costs = {m: sum(-(-n // m) for _, n in runs) * padb(m)
+             for m in range(1, max(n for _, n in runs) + 1)}
+    cmin = min(costs.values())
+    return max(m for m, c in costs.items() if c <= 1.05 * cmin)
+
+
+def _split_runs(runs, cap: int):
+    """Split every run into chunks of at most `cap` pages."""
+    out = []
+    for s, n in runs:
+        while n > cap:
+            out.append((s, cap))
+            s += cap
+            n -= cap
+        out.append((s, n))
+    return out
+
+
+def _runs_worthwhile(runs, sig_sizes, page_size: int) -> bool:
+    """Whether run-length merging pays: merge only when merged gather
+    bytes per term <= unmerged and merged device memory <= 1.25x
+    unmerged (both on the padded widths the device stores)."""
+    max_len = max(n for _, n in runs)
+    merged_row = _pad_words(-(-(page_size * max_len) // 4)) * 4
+    plain_row = _pad_words(-(-page_size // 4)) * 4
+    if merged_row * len(runs) > plain_row * len(sig_sizes):
+        return False
+    merged_bytes = sum(int(sig_sizes[s]) for s, _ in runs) * merged_row
+    plain_bytes = int(sum(sig_sizes)) * plain_row
+    return merged_bytes <= 1.25 * plain_bytes
+
+
+def _load_matrix_coalesced(path, payload_off: int, sig_sizes: list,
+                           page_size: int, device: torch.device, runs):
+    """Load a compact payload with runs [(start, len), ...] of
+    equal-signature pages merged column-wise into wider rows.
+
+    Merged page g row r = concat of member pages' row r (identical row
+    id per hash because the signature sizes are equal); every merged
+    page is zero-padded to the widest run. Returns
+    (matrix int32 [rows' + 1, W'], merged sig_sizes).
+    """
+    groups = [list(range(s, s + n)) for s, n in runs]
+    merged_sigs = [int(sig_sizes[g[0]]) for g in groups]
+    max_len = max(n for _, n in runs)
+    W = _pad_words(-(-(page_size * max_len) // 4))
+    buf = torch.zeros((sum(merged_sigs) + 1, W), dtype=torch.int32,
+                      device=device)
+    offs = np.zeros(len(sig_sizes) + 1, dtype=np.int64)
+    np.cumsum(np.asarray(sig_sizes, dtype=np.int64) * page_size,
+              out=offs[1:])
+    mm = np.memmap(path, dtype=np.uint8, mode="r", offset=payload_off,
+                   shape=(int(offs[-1]),))
+    rows_per = max(1, _UPLOAD_STRIPE_BYTES // (W * 4))
+    r_out = 0
+    for g, sig in zip(groups, merged_sigs):
+        r = 0
+        while r < sig:
+            n = min(rows_per, sig - r)
+            stripe = np.zeros((n, W * 4), dtype=np.uint8)
+            for j, p in enumerate(g):
+                blk = mm[offs[p] + r * page_size:
+                         offs[p] + (r + n) * page_size]
+                stripe[:, j * page_size:(j + 1) * page_size] = \
+                    blk.reshape(n, page_size)
+            buf[r_out + r:r_out + r + n].copy_(
+                torch.from_numpy(stripe.view(np.int32)))
+            r += n
+        r_out += sig
+    return buf, merged_sigs
+
+
+def create_hashes(queries: list[bytes], term_size: int, num_hashes: int,
+                  canonicalize: int) -> list[np.ndarray]:
+    """Per query: uint64 [num_terms, num_hashes] raw (un-modded) XXH64
+    (reference: cobs/query/classic_search.cpp:66-107). All windows of the
+    batch are canonicalized and hashed in one vectorized pass."""
+    if canonicalize not in (0, 1):
+        raise ValueError(f"Unknown canonicalize value {canonicalize}")
+    windows = []
+    for q in queries:
+        w = sliding_windows(np.frombuffer(q, dtype=np.uint8), term_size)
+        if w.shape[0] == 0:
+            raise ValueError(
+                f"query too short, needs to be at least {term_size} "
+                "characters long")
+        windows.append(w)
+    if not windows:
+        return []
+    allw = np.concatenate(windows)
+    if canonicalize == 1:
+        allw, good = canonicalize_batch(allw)
+        if not good.all():
+            raise ValueError("Invalid DNA base pair in query string. "
+                             "Only ACGT are allowed.")
+    hashes = xxh64_multi_seed(np.ascontiguousarray(allw), num_hashes)
+    ends = np.cumsum([w.shape[0] for w in windows])
+    return np.split(hashes, ends[:-1])
+
+
+def _rows_tensor(index: DeviceIndex, hashes_list) -> torch.Tensor:
+    """int32 [B, T, h, P] row ids on the index's device; T is the longest
+    query's term count and shorter queries pad with zero-row terms."""
+    B = len(hashes_list)
+    T = max(h.shape[0] for h in hashes_list)
+    rows = np.full((B, T, index.num_hashes, index.num_pages),
+                   index.zero_row, dtype=np.int32)
+    for b, hs in enumerate(hashes_list):
+        rows[b, :hs.shape[0]] = index.row_indices(hs)
+    return torch.from_numpy(rows).to(index.matrix.device)
+
+
+def _gather_count(index: DeviceIndex, hashes_list) -> torch.Tensor:
+    """int32 [B, P*W*32] padded-slot scores on the device."""
+    return gather_and_count(index.matrix, _rows_tensor(index, hashes_list),
+                            index.num_hashes)
+
+
+def score_batch(index: DeviceIndex, hashes_list: list[np.ndarray],
+                timer: Timer | None = None) -> np.ndarray:
+    """Score a batch of queries against one index.
+
+    Returns int32 [B, counts_size] in document order (page-major,
+    page-local doc id = word*32 + bit), matching the reference's 8-aligned
+    score layout (reference: cobs/query/classic_search.cpp:413-429).
+    """
+    if timer:
+        timer.active("io")
+    scores = _gather_count(index, hashes_list).cpu().numpy()
+    if timer:
+        timer.active("add rows")
+    out = _strip_word_padding(scores, len(hashes_list), index.doc_layout)
+    if timer:
+        timer.stop()
+    return out
+
+
+def _strip_word_padding(scores: np.ndarray, B: int,
+                        lay: DocLayout) -> np.ndarray:
+    """Device [B, P*W*32] scores -> the public int32 [B, counts_size]
+    contract (drops per-page word padding and, on run-coalesced indexes,
+    each merged page's phantom tail beyond its real doc count)."""
+    scores = scores.astype(np.int32, copy=False)
+    P, w32 = lay.num_pages, lay.w32
+    dpp = lay.uniform_docs
+    if P == 1:
+        return scores[:, :int(lay.page_docs[0])]
+    if dpp is not None:
+        return (scores.reshape(B, P, w32)[:, :, :dpp]
+                .reshape(B, P * dpp))
+    pages = scores.reshape(B, P, w32)
+    return np.concatenate(
+        [pages[:, p, :int(lay.page_docs[p])] for p in range(P)],
+        axis=1)
+
+
+def _slot_doc_numbers(idx: np.ndarray, lay: DocLayout) -> np.ndarray:
+    """Flat padded score-slot ids -> global document numbers (the
+    page-major numbering of score_batch's output)."""
+    idx = idx.astype(np.int64, copy=False)
+    page, local = idx // lay.w32, idx % lay.w32
+    dpp = lay.uniform_docs
+    if dpp is not None:
+        return page * dpp + local
+    return lay.doc_offsets[page] + local
+
+
+def _doc_valid_mask(lay: DocLayout, n_files: int) -> np.ndarray:
+    """bool [P*W*32]: True for score slots of real documents (excludes
+    per-page word padding, each merged page's phantom tail on
+    run-coalesced indexes, and 8-alignment slots beyond the file count)."""
+    W32 = lay.w32
+    slots = np.arange(lay.num_pages * W32)
+    page, local = slots // W32, slots % W32
+    doc_number = lay.doc_offsets[page] + local
+    return (local < lay.page_docs[page]) & (doc_number < n_files)
+
+
+_SLOT_MASK = (1 << 32) - 1
+
+
+def topk_slots(scores: torch.Tensor, valid_mask: torch.Tensor,
+               k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top k of int32 [B, S] scores with invalid slots forced to -1, in
+    (score desc, slot asc) order: (scores int64 [B, k], slots int64
+    [B, k]).
+
+    torch.topk keeps no tie order, so it ranks the key
+    (score + 1) << 32 | (2^32 - 1 - slot), unique per slot, which orders
+    exactly as lax.top_k's prefer-lower-index rule in cobs_tpu."""
+    if scores.shape[1] > _SLOT_MASK:
+        raise ValueError("too many score slots for the int64 top-k key")
+    masked = torch.where(valid_mask, scores, -1).long()
+    slot = torch.arange(scores.shape[1], device=scores.device)
+    key = ((masked + 1) << 32) | (_SLOT_MASK - slot)
+    top = torch.topk(key, k, dim=1).values
+    return (top >> 32) - 1, _SLOT_MASK - (top & _SLOT_MASK)
+
+
+def score_topk(index: DeviceIndex, hashes_list, k: int,
+               timer: Timer | None = None):
+    """Top-k scoring: only [B, k] (score, document) pairs leave the
+    device instead of the full per-document score vector.
+
+    Ties order by (score desc, doc asc), the reference's result order
+    (reference: cobs/query/classic_search.cpp:140-144). Padding slots
+    (page word padding and 8-alignment beyond the real document count)
+    are masked to -1 so they sort last; callers must drop negative
+    scores.
+
+    Returns (scores i32 [B, k'], doc_numbers i64 [B, k']) with
+    k' = min(k, P*W*32), doc numbers in score_batch's slot numbering.
+    """
+    if timer:
+        timer.active("io")
+    scores = _gather_count(index, hashes_list)
+    vals, slots = topk_slots(scores, index.valid_mask,
+                             min(k, scores.shape[1]))
+    vals = vals.int().cpu().numpy()
+    slots = slots.cpu().numpy()
+    if timer:
+        timer.stop()
+    return vals, _slot_doc_numbers(slots, index.doc_layout)
