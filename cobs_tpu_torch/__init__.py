@@ -2,10 +2,11 @@
 
 The port of `cobs_tpu` (which stays the JAX reference): an index file is
 loaded into one int32 matrix on a torch device, query k-mers are hashed
-on the host with numpy, and the fused gather -> AND -> count runs in a
-hand-written CUDA kernel (`ops/csrc/gather_count.cu`, built with nvcc at
-first use). On CPU tensors the kernel's plain PyTorch twin runs instead.
-This package imports torch and numpy, never jax or cobs_tpu.
+on the device (`ops/csrc/device_hash.cu`), and the fused gather -> AND ->
+count runs in a hand-written CUDA kernel (`ops/csrc/gather_count.cu`);
+both are built with nvcc at first use. On CPU tensors each kernel's plain
+PyTorch version runs instead. This package imports torch and numpy, never
+jax or cobs_tpu.
 """
 
 from cobs_tpu_torch.query.engine import DeviceIndex

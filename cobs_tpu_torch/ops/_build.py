@@ -6,18 +6,23 @@ first use into a shared library under `cobs_tpu_torch/_build/` (listed in
 source is rebuilt. The library links the CUDA runtime statically and
 shares the device's primary context with PyTorch, so tensor pointers and
 PyTorch's stream can be passed straight in. Nothing here runs at import:
-the CPU-only test machine has no nvcc and never calls `load`.
+the CPU-only test machine has no nvcc and never calls `load` or `build`.
 """
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+
+#: every CUDA source of the port (csrc/<name>.cu)
+SOURCES = ("gather_count", "device_hash", "dma_gather")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -39,27 +44,48 @@ def _nvcc() -> str:
                        "use")
 
 
+def _so_path(name: str) -> Path:
+    src = _CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def _compile(name: str) -> float:
+    """Compile `csrc/<name>.cu` unless its build exists; returns the
+    seconds nvcc took (0.0 when nothing was built)."""
+    so = _so_path(name)
+    if so.exists():
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                           str(_CSRC / f"{name}.cu")],
+                          capture_output=True, text=True)
+    build_logs[name] = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on {name}.cu:\n{build_logs[name]}")
+    os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
+    return time.perf_counter() - t0
+
+
+def build(names=SOURCES) -> dict[str, float]:
+    """Compile the named sources that have no build yet, one nvcc process
+    each, all started together. Returns each source's nvcc seconds;
+    raises RuntimeError if any build fails."""
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        futures = {n: pool.submit(_compile, n) for n in names}
+    return {n: f.result() for n, f in futures.items()}
+
+
 def load(name: str) -> ctypes.CDLL:
     """The ctypes library built from `csrc/<name>.cu`, compiled first if
     this source has no build yet. Raises RuntimeError if nvcc fails."""
     lib = _libs.get(name)
-    if lib is not None:
-        return lib
-    src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"lib{name}_{digest}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(src)], capture_output=True, text=True)
-        build_logs[name] = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed on {src.name}:\n"
-                               f"{build_logs[name]}")
-        os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
-    lib = ctypes.CDLL(str(so))
-    _libs[name] = lib
+    if lib is None:
+        _compile(name)
+        lib = ctypes.CDLL(str(_so_path(name)))
+        _libs[name] = lib
     return lib

@@ -12,11 +12,19 @@ index lives on the device as ONE dense matrix of 32-bit words
   137-150), so classic is the P=1 case of one engine;
 - the last row is all zero: padding terms point at it.
 
-A query batch becomes host hashes (numpy XXH64), then a row-index tensor
-[B, T, h, P] padded to the longest query with zero-row terms, then one
-launch of `ops.query_kernel.gather_and_count`, then either the full score
-vector per query (`score_batch`) or the top k (score, doc) pairs
-(`score_topk`) in the reference's (score desc, doc asc) order.
+A query batch becomes a row-index tensor [B, T, h, P] padded to the
+longest query with zero-row terms, then one launch of
+`ops.query_kernel.gather_and_count`, then either the full score vector per
+query (`score_batch`) or the top k (score, doc) pairs (`score_topk`) in
+the reference's (score desc, doc asc) order. The row ids come either from
+the device (a `QueryBytes` payload: the raw query bytes are uploaded and
+`ops.device_hash.rows_from_queries` hashes them on the index's device) or
+from the host (per-query numpy XXH64 from `create_hashes`, turned into
+row ids by `DeviceIndex.row_indices` and uploaded).
+
+`score_batch_async` / `score_topk_async` enqueue that work and return a
+`PendingScores` / `PendingTopK` whose `fetch()` is the only point that
+waits on the device; `score_batch` / `score_topk` fetch at once.
 """
 
 import dataclasses
@@ -32,6 +40,7 @@ from cobs_tpu_torch.fmt import classic as fmt_classic
 from cobs_tpu_torch.fmt import compact as fmt_compact
 from cobs_tpu_torch.fmt.magic import FileIOError
 from cobs_tpu_torch.ingest.util import sliding_windows
+from cobs_tpu_torch.ops.device_hash import rows_from_queries
 from cobs_tpu_torch.ops.query_kernel import gather_and_count
 from cobs_tpu_torch.settings import settings
 from cobs_tpu_torch.utils.timer import Timer
@@ -155,6 +164,14 @@ class DeviceIndex:
         """bool [P*W*32] on the device: True for slots of real documents."""
         return torch.from_numpy(_doc_valid_mask(
             self.doc_layout, len(self.file_names))).to(self.matrix.device)
+
+    @functools.cached_property
+    def page_tables(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(sig_sizes, row_offsets) as int64 [P] tensors on the device:
+        the per-page modulo and offset of device hashing."""
+        return tuple(torch.from_numpy(np.asarray(a).astype(np.int64))
+                     .to(self.matrix.device)
+                     for a in (self.sig_sizes, self.row_offsets))
 
     @classmethod
     def from_arrays(cls, matrix, row_offsets, sig_sizes, word_width: int,
@@ -446,24 +463,159 @@ def create_hashes(queries: list[bytes], term_size: int, num_hashes: int,
 
 
 def _rows_tensor(index: DeviceIndex, hashes_list) -> torch.Tensor:
-    """int32 [B, T, h, P] row ids on the index's device; T is the longest
-    query's term count and shorter queries pad with zero-row terms."""
+    """int32 [B, T, h, P] row ids on the index's device from host hashes;
+    T is the longest query's term count and shorter queries pad with
+    zero-row terms."""
     B = len(hashes_list)
     T = max(h.shape[0] for h in hashes_list)
     rows = np.full((B, T, index.num_hashes, index.num_pages),
                    index.zero_row, dtype=np.int32)
     for b, hs in enumerate(hashes_list):
         rows[b, :hs.shape[0]] = index.row_indices(hs)
-    return torch.from_numpy(rows).to(index.matrix.device)
+    return _upload(rows, index.matrix.device)
 
 
-def _gather_count(index: DeviceIndex, hashes_list) -> torch.Tensor:
-    """int32 [B, P*W*32] padded-slot scores on the device."""
-    return gather_and_count(index.matrix, _rows_tensor(index, hashes_list),
-                            index.num_hashes)
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on `device`, without waiting for the
+    device's earlier work: CUDA stages a non-blocking copy from pageable
+    memory before it returns, so `a` may be freed at once. (Staging in
+    pinned memory first measured no faster on the H100:
+    experiments/stream_overlap.py.)"""
+    return torch.from_numpy(a).to(device, non_blocking=True)
 
 
-def score_batch(index: DeviceIndex, hashes_list: list[np.ndarray],
+class QueryBytes:
+    """Raw (validated) query bytes for device hashing.
+
+    The scorers hash them on the index's device (ops.device_hash: window
+    -> canonicalize -> XXH64 -> per-page mod), so the upload is the query
+    bytes (~1 KB per query) instead of 4 bytes per (term, hash, page) of
+    row ids, and the host computes no hash. Search builds one per index
+    for DeviceIndex backends (settings.device_hash)."""
+
+    __slots__ = ("queries", "packed", "lens")
+
+    def __init__(self, queries: list[bytes]):
+        self.queries = queries
+        #: the host half of the upload (prepack_query_bytes): padded
+        #: uint8 [B, L] rows and their int32 [B] lengths. Search fills
+        #: them in its host stage, so dispatch only uploads.
+        self.packed = None
+        self.lens = None
+
+    def __len__(self):
+        return len(self.queries)
+
+
+def _pack_query_bytes(queries: list[bytes], term_size: int):
+    """(uint8 [B, L], int32 [B] true lengths): queries padded with 'A'
+    to the longest one, and to at least term_size (one term). Terms past
+    a query's end point at the zero row, so the padding only has to be
+    valid ACGT, which keeps a validity check over the padded rows exact.
+    cobs_tpu rounds B and T up to buckets to bound jit recompiles; eager
+    PyTorch compiles nothing, so nothing is rounded here."""
+    L = max(term_size, max(len(q) for q in queries))
+    qb = np.full((len(queries), L), ord("A"), dtype=np.uint8)
+    lens = np.zeros(len(queries), dtype=np.int32)
+    _fill_query_rows(qb, lens, queries)
+    return qb, lens
+
+
+def _fill_query_rows(qb: np.ndarray, lens: np.ndarray, queries) -> None:
+    """Copy query bytes into padded rows: a batch of one length in one
+    join + reshape copy, others query by query."""
+    n = len(queries)
+    L0 = len(queries[0]) if n else 0
+    if n and all(len(q) == L0 for q in queries):
+        qb[:n, :L0] = np.frombuffer(
+            b"".join(queries), dtype=np.uint8).reshape(n, L0)
+        lens[:n] = L0
+        return
+    for b, q in enumerate(queries):
+        a = np.frombuffer(q, dtype=np.uint8)
+        qb[b, :a.size] = a
+        lens[b] = a.size
+
+
+def prepack_query_bytes(index: DeviceIndex, qb: QueryBytes) -> None:
+    """Run the host half of the query upload (padding) ahead of dispatch
+    and keep it on the payload: Search's host stage calls this, so its
+    dispatch only uploads."""
+    qb.packed, qb.lens = _pack_query_bytes(qb.queries, index.term_size)
+
+
+def _device_hash_args(index: DeviceIndex, qb: QueryBytes):
+    """(qdata uint8 [B, L], qlens int32 [B]) on the index's device."""
+    if index.matrix.shape[0] > np.iinfo(np.int32).max:
+        # the same guard as the host path's row_indices: device hashing
+        # must not silently truncate row ids
+        raise ValueError("index too large for int32 row addressing")
+    if qb.packed is None:
+        prepack_query_bytes(index, qb)
+    dev = index.matrix.device
+    return _upload(qb.packed, dev), _upload(qb.lens, dev)
+
+
+def _gather_count(index: DeviceIndex, payload) -> torch.Tensor:
+    """int32 [B, P*W*32] padded-slot scores on the device; `payload` is a
+    QueryBytes (hashed on the device) or per-query host hashes."""
+    if isinstance(payload, QueryBytes):
+        qdata, qlens = _device_hash_args(index, payload)
+        sig, off = index.page_tables
+        rows = rows_from_queries(qdata, qlens, index.term_size,
+                                 index.num_hashes, index.canonicalize,
+                                 sig, off, index.zero_row)
+    else:
+        rows = _rows_tensor(index, payload)
+    return gather_and_count(index.matrix, rows, index.num_hashes)
+
+
+class PendingScores:
+    """A dispatched score batch; fetch() copies it to the host."""
+
+    __slots__ = ("_dev", "_B", "_lay")
+
+    def __init__(self, dev: torch.Tensor, B: int, layout: DocLayout):
+        self._dev = dev
+        self._B = B
+        self._lay = layout
+
+    def fetch(self) -> np.ndarray:
+        """int32 [B, counts_size]: the score_batch contract. Waits for
+        the device."""
+        return _strip_word_padding(self._dev.cpu().numpy(), self._B,
+                                   self._lay)
+
+
+class PendingTopK:
+    """A dispatched top-k batch; fetch() copies it to the host."""
+
+    __slots__ = ("_dev", "_lay")
+
+    def __init__(self, dev: torch.Tensor, layout: DocLayout):
+        self._dev = dev   # int64 [2, B, k]: scores, then slots
+        self._lay = layout
+
+    def fetch(self):
+        """(scores i32 [B, k], doc_numbers i64 [B, k]): the score_topk
+        contract. Waits for the device."""
+        vals, slots = self._dev.cpu().numpy()
+        return vals.astype(np.int32), _slot_doc_numbers(slots, self._lay)
+
+
+def score_batch_async(index: DeviceIndex, payload,
+                      timer: Timer | None = None) -> PendingScores:
+    """Enqueue the scoring of a batch (QueryBytes or per-query host
+    hashes) without waiting for the device."""
+    if timer:
+        timer.active("io")
+    scores = _gather_count(index, payload)
+    if timer:
+        timer.stop()
+    return PendingScores(scores, len(payload), index.doc_layout)
+
+
+def score_batch(index: DeviceIndex, payload,
                 timer: Timer | None = None) -> np.ndarray:
     """Score a batch of queries against one index.
 
@@ -471,12 +623,10 @@ def score_batch(index: DeviceIndex, hashes_list: list[np.ndarray],
     page-local doc id = word*32 + bit), matching the reference's 8-aligned
     score layout (reference: cobs/query/classic_search.cpp:413-429).
     """
-    if timer:
-        timer.active("io")
-    scores = _gather_count(index, hashes_list).cpu().numpy()
+    pending = score_batch_async(index, payload, timer)
     if timer:
         timer.active("add rows")
-    out = _strip_word_padding(scores, len(hashes_list), index.doc_layout)
+    out = pending.fetch()
     if timer:
         timer.stop()
     return out
@@ -544,7 +694,21 @@ def topk_slots(scores: torch.Tensor, valid_mask: torch.Tensor,
     return (top >> 32) - 1, _SLOT_MASK - (top & _SLOT_MASK)
 
 
-def score_topk(index: DeviceIndex, hashes_list, k: int,
+def score_topk_async(index: DeviceIndex, payload, k: int,
+                     timer: Timer | None = None) -> PendingTopK:
+    """Enqueue top-k scoring without waiting for the device; fetch()
+    gives the score_topk contract."""
+    if timer:
+        timer.active("io")
+    scores = _gather_count(index, payload)
+    vals, slots = topk_slots(scores, index.valid_mask,
+                             min(k, scores.shape[1]))
+    if timer:
+        timer.stop()
+    return PendingTopK(torch.stack((vals, slots)), index.doc_layout)
+
+
+def score_topk(index: DeviceIndex, payload, k: int,
                timer: Timer | None = None):
     """Top-k scoring: only [B, k] (score, document) pairs leave the
     device instead of the full per-document score vector.
@@ -558,13 +722,10 @@ def score_topk(index: DeviceIndex, hashes_list, k: int,
     Returns (scores i32 [B, k'], doc_numbers i64 [B, k']) with
     k' = min(k, P*W*32), doc numbers in score_batch's slot numbering.
     """
+    pending = score_topk_async(index, payload, k, timer)
     if timer:
         timer.active("io")
-    scores = _gather_count(index, hashes_list)
-    vals, slots = topk_slots(scores, index.valid_mask,
-                             min(k, scores.shape[1]))
-    vals = vals.int().cpu().numpy()
-    slots = slots.cpu().numpy()
+    out = pending.fetch()
     if timer:
         timer.stop()
-    return vals, _slot_doc_numbers(slots, index.doc_layout)
+    return out

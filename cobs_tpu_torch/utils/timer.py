@@ -40,6 +40,13 @@ class Timer:
     def get(self, name: str) -> float:
         return self._durations.get(name, 0.0)
 
+    def merge(self, other: "Timer") -> "Timer":
+        """Fold another (e.g. a worker thread's private) timer's phases
+        into this one (reference: cobs/util/timer.cpp:67-75)."""
+        for name in other._order:
+            self._accumulate(name, other._durations[name])
+        return self
+
     def reset(self) -> None:
         self._order.clear()
         self._durations.clear()
