@@ -8,7 +8,11 @@ per source, all started together), then runs these phases, each ending in
 torch.cuda.synchronize():
 
 1. the gather-and-count kernel (K1) against its plain PyTorch version at
-   mixed shapes (T, h, P, W), exact;
+   mixed shapes (T, h, P, W), exact; then at the edges of its design,
+   exact and bit-equal on a second launch: T*h below, at and one past
+   the ring's row slices, every cluster size 1-8, the 4-byte path (W in
+   1, 3, 5), W above one slice (1100, 3136), h in 1, 3, 8, more than 240
+   terms in one CTA, ids out of range;
 2. `Search` on the committed golden indexes (tests/data/golden) on the
    card: the reference's result lines, with the hash kernel and K1
    launched;
@@ -31,10 +35,16 @@ torch.cuda.synchronize():
 5. the hash kernel against its plain version, exact, at k in {7, 15, 31,
    32, 33, 64}, h in {1, 3}, P in {1, 3} with unequal signature sizes,
    canonicalize in {0 (random bytes), 1}, with variable query lengths;
-6. K2 (`dma_gather_rows`) against its plain version, exact, at W in {1,
-   3, 384, 3136} and N in {1, 17, 16384}, with out-of-range ids;
+6. K2 (`dma_gather_rows`) against its plain version, exact and bit-equal
+   on a second launch, at W in {1, 3, 384, 3136, 4100, 16384} (rows of
+   up to eight 8 KB chunks on the bulk path) and N in {1, 17, 16384},
+   with out-of-range ids, at the default plan and two forced ones, and
+   on an unaligned view (the 4-byte path);
 7. K2's own path, the row-gather bandwidth sweep of
-   cobs_tpu_torch/experiments/dma_gather_bench.py, beside index_select.
+   cobs_tpu_torch/experiments/dma_gather_bench.py, beside index_select;
+8. K1's batch sweep, cobs_tpu_torch/experiments/gather_count_bench.py:
+   B in {1, 8, 64, 256, 1024} at the reference shape and phase 4's wide
+   rows, each checked against the plain version first.
 
 Prints the card's name and power limit, the build times, the times, then
 a JSON line of the kernels and, last, the device JSON line. Any failure
@@ -134,7 +144,73 @@ def phase_mixed_shapes(torch, qk, rng) -> int:
                                       f"h={h} P={P} W={W}: {err}")
                     worst = max(worst, err)
     print("phase 1 K1 mixed shapes: kernel == plain at 48 shapes")
-    return worst
+    return max(worst, phase_k1_edges(torch, qk, rng))
+
+
+def forced_plan(plan, T: int, cluster: int):
+    """`plan` with its term ranges cut into `cluster` CTAs per cluster."""
+    return plan._replace(cluster=cluster, tpc=-(-T // cluster),
+                         grid=plan.grid // plan.cluster * cluster)
+
+
+def phase_k1_edges(torch, qk, rng) -> int:
+    """K1 at the edges of its design, each exact against the plain version
+    and bit-equal on a second launch: T*h below, at and one past the ring
+    depth (one CTA per cluster); every cluster size 1-8, with empty CTAs;
+    more than 255 terms in one CTA (a flush of the counters mid-loop); the
+    4-byte path (W in 1, 3, 5); W above one slice (1100, 3136); h in 1, 3,
+    8; ids out of range."""
+    R, B, P = 4099, 2, 2
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = 0
+
+    def check(m, rows, h, plan, what):
+        nonlocal cases
+        r = torch.from_numpy(rows).to(DEVICE)
+        got = qk.gather_and_count(m, r, h, plan)
+        again = qk.gather_and_count(m, r, h, plan)
+        want = qk.gather_and_count_reference(m, r, h)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"K1 != plain at {what}, plan "
+                                        f"{plan}: {max_err(got, want)}")
+        require(torch.equal(got, again), f"K1 not bit-equal twice at {what}")
+        cases += 1
+
+    def ids(T, h):
+        rows = rng.integers(0, R, size=(B, T, h, P)).astype(np.int32)
+        rows[0, 0, 0, 0] = -3
+        rows[-1, -1, -1, -1] = R + 5
+        return rows
+
+    for W in (1, 3, 5, 384, 1100, 3136):
+        host = rng.integers(0, 1 << 32, size=(R + 1, W),
+                            dtype=np.uint64).astype(np.uint32)
+        host[-1] = 0
+        m = torch.from_numpy(host.view(np.int32)).to(DEVICE)
+        for h in (1, 3, 8):
+            plan = qk.plan_gather_count(B, 1, h, P, W, sm)
+            depth = plan.stages * plan.stage_rows  # row slices in the ring
+            for T in sorted({max(1, depth // h - 1), -(-depth // h),
+                             -(-depth // h) + 1}):
+                plan = forced_plan(qk.plan_gather_count(B, T, h, P, W, sm),
+                                   T, 1)
+                check(m, ids(T, h), h, plan,
+                      f"W={W} h={h} T={T} (ring {depth})")
+        if W == 384:
+            T = 100
+            for cluster in range(1, 9):
+                plan = forced_plan(qk.plan_gather_count(B, T, 1, P, W, sm),
+                                   T, cluster)
+                check(m, ids(T, 1), 1, plan, f"W={W} cluster={cluster}")
+            for T in (9, 1000):  # empty CTAs; 1000 terms in one CTA
+                cluster = 8 if T == 9 else 1
+                plan = forced_plan(qk.plan_gather_count(B, T, 1, P, W, sm),
+                                   T, cluster)
+                check(m, ids(T, 1), 1, plan,
+                      f"W={W} T={T} cluster={cluster}")
+    print(f"phase 1 K1 edges: kernel == plain, and bit-equal on a second "
+          f"launch, at {cases} cases")
+    return 0
 
 
 def phase_golden(torch, qk, dh, Search) -> None:
@@ -357,7 +433,8 @@ def phase_hash_kernel(torch, dh, rng) -> int:
 def phase_gather_small(torch, dg, rng) -> int:
     R = 4099
     cases = 0
-    for W in (1, 3, 384, 3136):
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for W in (1, 3, 384, 3136, 4100, 16384):
         m = torch.from_numpy(
             rng.integers(0, 1 << 32, size=(R, W), dtype=np.uint64)
             .astype(np.uint32).view(np.int32)).to(DEVICE)
@@ -367,12 +444,21 @@ def phase_gather_small(torch, dg, rng) -> int:
                 ids[0], ids[-1] = -1, R      # out of range: zero rows
                 ids[N // 2] = np.iinfo(np.int32).min
             r = torch.from_numpy(ids).to(DEVICE)
-            got = dg.dma_gather_rows(m, r)
             want = dg.dma_gather_rows_reference(m, r)
-            torch.cuda.synchronize()
-            require(torch.equal(got, want),
-                    f"K2 != plain at W={W} N={N}: {max_err(got, want)}")
-            cases += 1
+            # the default plan, then (bulk path) rings of 3 stages, chunks
+            # of 1 KB, and one CTA walking every unit
+            plans = [None] + ([] if W % 4 else [
+                dg.plan_gather(N, W, sm, 1024, 3 * 1024, 1),
+                dg.plan_gather(N, W, 1, 4096, 64 << 10, 1)])
+            for plan in plans:
+                got = dg.dma_gather_rows(m, r, plan)
+                torch.cuda.synchronize()
+                require(torch.equal(got, want),
+                        f"K2 != plain at W={W} N={N} plan={plan}: "
+                        f"{max_err(got, want)}")
+                require(torch.equal(dg.dma_gather_rows(m, r, plan), got),
+                        f"K2 not bit-equal twice at W={W} N={N}")
+                cases += 1
     # an unaligned view: the kernel must take its 4-byte path
     m = torch.from_numpy(rng.integers(0, 1 << 31, size=(R * 8 + 1,))
                          .astype(np.int32)).to(DEVICE)[1:].view(R, 8)
@@ -381,7 +467,8 @@ def phase_gather_small(torch, dg, rng) -> int:
     require(torch.equal(dg.dma_gather_rows(m, r),
                         dg.dma_gather_rows_reference(m, r)),
             "K2 != plain on an unaligned matrix")
-    print(f"phase 6 K2: kernel == plain at {cases + 1} cases")
+    print(f"phase 6 K2: kernel == plain, and bit-equal on a second launch, "
+          f"at {cases + 1} cases")
     return 0
 
 
@@ -434,6 +521,7 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 1
     from cobs_tpu_torch.experiments import dma_gather_bench as bench
+    from cobs_tpu_torch.experiments import gather_count_bench as gc_bench
     from cobs_tpu_torch.ops import _build
     from cobs_tpu_torch.ops import device_hash as dh
     from cobs_tpu_torch.ops import dma_gather as dg
@@ -479,6 +567,14 @@ def main() -> int:
     for row in sweep:
         print(f"phase 7 K2 bandwidth ({card}): " + bench.format_row(row))
     k2 = sweep[0]  # W=384: the row width of phase 3
+
+    # K1's batch sweep, with its count at 0 just before it
+    qk.LAUNCHES = 0
+    k1_sweep = gc_bench.sweep(torch)
+    torch.cuda.synchronize()
+    require(qk.LAUNCHES > 0, "the batch sweep did not launch K1")
+    for row in k1_sweep:
+        print(f"phase 8 K1 batch sweep ({card}): " + gc_bench.format_row(row))
 
     entries = {
         "gather_and_count": dict(

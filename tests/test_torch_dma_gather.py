@@ -90,3 +90,50 @@ def test_wrapper_rejects_bad_input(case, exc):
     }[case]
     with pytest.raises(exc):
         tdg.dma_gather_rows(*args)
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("W", [4, 384, 3136, 4100, 6144, 16384, 1 << 20])
+@pytest.mark.parametrize("N", [1, 17, 16384])
+def test_plan_gather_fits_and_covers_rows(N, W):
+    """Chunks of a row are 16-byte multiples that cover it, no larger than
+    a stage; the ring fits the 232,448 bytes a block may opt into, and the
+    persistent grid has a unit for every CTA."""
+    plan = tdg.plan_gather(N, W, H100_SMS)
+    assert plan.chunk_bytes % 16 == 0
+    assert plan.chunk_bytes <= tdg.STAGE_MAX_BYTES
+    assert (plan.chunks - 1) * plan.chunk_bytes < 4 * W
+    assert plan.chunks * plan.chunk_bytes >= 4 * W
+    assert 2 <= plan.stages <= 64
+    assert plan.smem <= tdg.SMEM_LIMIT
+    assert 1 <= plan.grid <= min(N * plan.chunks,
+                                 tdg.MAX_CTAS_PER_SM * H100_SMS)
+    assert not plan.evict_first   # no L2 size given
+
+
+def test_plan_gather_small_rows_get_more_ctas():
+    """A 1.5 KB row is one unit; one lane issues a CTA's copies, so small
+    rows get the most CTAs per SM, wide rows one, each with a ring of at
+    least 16 KB."""
+    small = tdg.plan_gather(16384, 384, H100_SMS)
+    assert small.chunks == 1 and small.chunk_bytes == 1536
+    assert small.grid == tdg.MAX_CTAS_PER_SM * H100_SMS
+    assert small.stages * small.chunk_bytes >= 15 << 10
+    wide = tdg.plan_gather(16384, 16384, H100_SMS)
+    assert wide.grid == H100_SMS and wide.chunk_bytes == 8 << 10
+
+
+H100_L2 = 50 << 20
+
+
+@pytest.mark.parametrize("N,W,evict", [
+    (16384, 384, True),      # a 25 MB output fits in half the L2
+    (16384, 6144, False),
+    (1, 16384, True),
+    (65536, 384, False),
+])
+def test_plan_gather_reads_evict_first_when_the_output_fits_l2(N, W, evict):
+    plan = tdg.plan_gather(N, W, H100_SMS, l2_bytes=H100_L2)
+    assert plan.evict_first is evict

@@ -42,6 +42,8 @@ def _port(matrix, rows, h):
     (2, 128, 3, 3, 128),
     (1, 37, 2, 2, 256),     # T not a multiple of 128, h=2, two pages
     (3, 1, 1, 1, 128),      # a single term
+    (1, 256, 1, 1, 1152),   # W above one 512-word slice of the kernel
+    (2, 128, 2, 1, 1152),
 ])
 def test_twin_matches_xla(rng, B, T, h, P, W):
     matrix, rows = _inputs(rng, B, T, h, P, W)
@@ -53,6 +55,10 @@ def test_twin_matches_xla(rng, B, T, h, P, W):
 @pytest.mark.parametrize("B,T,h,P,W", [
     (2, CHUNK, 3, 3, 128),
     (1, 2 * CHUNK, 1, 1, 256),
+    (1, 128, 1, 1, 128),
+    (1, 256, 1, 1, 128),
+    (1, 128, 1, 1, 1152),   # three slices of the kernel's 384 words
+    (1, 256, 2, 1, 1152),
 ])
 def test_twin_matches_pallas_interpret(rng, B, T, h, P, W):
     matrix, rows = _inputs(rng, B, T, h, P, W)
@@ -117,13 +123,111 @@ def test_wrapper_rejects_bad_input(case):
         qk.gather_and_count(m, r, h)
 
 
+H100_SMS = 132
+#: the reference's default query shape (phase 3 of chip_smoke.py) and the
+#: wide-row shape (phase 4): (B, T, h, P, W)
+PHASE3 = (64, 1000, 1, 1, 384)
+PHASE4 = (8, 1024, 1, 1, 3136)
+PLAN_SHAPES = [PHASE3, PHASE4, (1, 1, 1, 1, 1), (1, 1000, 1, 1, 384),
+               (1024, 1000, 1, 1, 384), (3, 17, 3, 3, 5), (2, 9, 8, 2, 1100),
+               (1, 5, 252, 1, 16384), (4, 100_000, 2, 3, 128)]
+
+
 def test_term_splits_fill_the_card():
-    """T is split so the grid holds about 8 blocks per SM, never into
-    ranges shorter than 64 terms."""
-    # the reference's default shape on a 132-SM H100: 192 base blocks
-    assert qk.term_splits(64, 1000, 1, 384, 132) == 6
-    assert qk.term_splits(1, 20, 1, 128, 132) == 1
-    for B, T, P, W in [(1, 1, 1, 4), (3, 1000, 3, 316), (8, 1024, 1, 3136),
-                       (64, 100_000, 1, 384), (1024, 50, 40, 128)]:
-        s = qk.term_splits(B, T, P, W, 132)
-        assert 1 <= s <= max(1, T // 64)
+    """The phase-3 and phase-4 grids are one whole wave of resident CTAs
+    on a 132-SM H100, at least 80 % full; the phase-3 grid splits T over
+    more than one CTA per query to get there."""
+    for shape in (PHASE3, PHASE4):
+        plan = qk.plan_gather_count(*shape, H100_SMS)
+        slots = plan.per_sm * H100_SMS
+        assert plan.grid <= slots, plan
+        assert plan.grid >= 0.8 * slots, plan
+    assert qk.plan_gather_count(*PHASE3, H100_SMS).cluster > 1
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_plan_covers_every_term_once(shape):
+    """Each term of each (query, page, slice) lands in exactly one CTA of
+    one cluster, and every word in exactly one slice."""
+    B, T, h, P, W = shape
+    plan = qk.plan_gather_count(B, T, h, P, W, H100_SMS)
+    seen = np.zeros(T, dtype=np.int64)
+    for rank in range(plan.cluster):
+        lo = rank * plan.tpc
+        seen[lo:min(T, lo + plan.tpc)] += 1
+    assert (seen == 1).all()
+    assert plan.cluster * plan.tpc - T < plan.tpc   # no CTA without terms
+    words = np.zeros(W, dtype=np.int64)
+    for s in range(plan.n_slices):
+        words[s * plan.slice_w:(s + 1) * plan.slice_w] += 1
+    assert (words == 1).all()
+    assert plan.slice_w % 4 == 0 and plan.slice_w <= qk.MAX_SLICE_WORDS
+    assert plan.wpt == -(-plan.slice_w // 128)
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_plan_cluster_divides_grid(shape):
+    B, T, h, P, W = shape
+    plan = qk.plan_gather_count(B, T, h, P, W, H100_SMS)
+    assert 1 <= plan.cluster <= 8
+    assert plan.grid % plan.cluster == 0
+    assert plan.grid == B * P * plan.n_slices * plan.cluster
+
+
+@pytest.mark.parametrize("W", [1, 3, 384, 3136, 16384])
+@pytest.mark.parametrize("h", [1, 2, 3, 8, 252])
+def test_plan_fits_shared_memory(W, h):
+    """Dynamic shared memory stays within the 232,448 bytes a block may
+    opt into, and the counted CTAs per SM fit the SM's 233,472 bytes."""
+    plan = qk.plan_gather_count(64, 1000, h, 1, W, H100_SMS)
+    assert plan.smem <= qk.SMEM_LIMIT
+    assert plan.per_sm * (plan.smem + 1024) <= qk.SM_SMEM
+    assert plan.stages >= 4
+    qk._check_plan(plan, 64, 1000, 1, W)
+
+
+def test_plan_rejects_a_bad_plan():
+    plan = qk.plan_gather_count(*PHASE3, H100_SMS)
+    for bad in (plan._replace(cluster=9, tpc=112, grid=64 * 9),
+                plan._replace(tpc=10),
+                plan._replace(smem=qk.SMEM_LIMIT + 1),
+                plan._replace(grid=plan.grid + 1),
+                plan._replace(stage_rows=3)):
+        with pytest.raises(ValueError):
+            qk._check_plan(bad, 64, 1000, 1, 384)
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_plan_stages_hold_whole_rows(shape):
+    """A stage holds a power of 2 (at most 8) of row slices, as many as fit
+    in STAGE_BYTES, at least one; the ring is what `smem` counts."""
+    B, T, h, P, W = shape
+    plan = qk.plan_gather_count(B, T, h, P, W, H100_SMS)
+    row = 4 * plan.slice_w
+    assert plan.stage_rows in (1, 2, 4, 8)
+    assert plan.stage_rows == 1 or plan.stage_rows * row <= qk.STAGE_BYTES
+    assert (plan.stage_rows == qk.MAX_STAGE_ROWS
+            or 2 * plan.stage_rows * row > qk.STAGE_BYTES)
+    assert plan.smem >= plan.stages * plan.stage_rows * row + 4 * 33 * \
+        plan.slice_w
+
+
+def test_plan_narrows_slices_for_small_batches():
+    """One query at W=384 would give 8 CTAs: slices of 128 words triple
+    them. 64 queries fill the card with whole rows."""
+    one = qk.plan_gather_count(1, 1000, 1, 1, 384, H100_SMS)
+    assert (one.slice_w, one.n_slices, one.cluster, one.grid) == (128, 3, 8,
+                                                                  24)
+    assert qk.plan_gather_count(*PHASE3, H100_SMS).slice_w == 384
+
+
+def test_plan_uses_the_cards_cluster_occupancy():
+    """Given the clusters the card holds at once (fewer than SMs x CTAs
+    per SM / cluster size, since a cluster must fit in one GPC: here 124
+    usable SMs), the phase-3 grid is one whole wave of them."""
+    def occupancy(slice_w, stages, stage_rows, wpt, cluster):
+        return 3 * 124 // cluster
+
+    plan = qk.plan_gather_count(*PHASE3, H100_SMS, max_clusters=occupancy)
+    assert plan.cluster == 5
+    assert plan.grid == 64 * 5 <= occupancy(0, 0, 0, 0, 5) * 5
