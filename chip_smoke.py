@@ -44,7 +44,21 @@ torch.cuda.synchronize():
    cobs_tpu_torch/experiments/dma_gather_bench.py, beside index_select;
 8. K1's batch sweep, cobs_tpu_torch/experiments/gather_count_bench.py:
    B in {1, 8, 64, 256, 1024} at the reference shape and phase 4's wide
-   rows, each checked against the plain version first.
+   rows, each checked against the plain version first;
+9. the streamed (host-mmap) backend: the golden indexes as
+   `StreamedIndex` in device and host scoring, warm and cold, give the
+   reference's lines; then phase 3's shape as a classic index file on
+   local disk (2^21 rows x 1,250 B, random bytes from a seed, deleted at
+   the end): 1,024 random 1,030 bp queries in batches of 64 through
+   `Search(path, streamed=True)` in device and host scoring and through
+   `Search(path)` (held on the card), `search_batch` and `search_stream`,
+   `num_results` 100 and 0: every ranking equal; one batch's score
+   vectors equal across the three; `Search(path)` streams above
+   `max_device_index_bytes`; K1 and the hash kernel launch on the
+   streamed path and equal their plain versions at its shapes. Prints
+   q/s, `Timer` phases, unique rows and bytes uploaded per batch, the
+   pinned H2D rate, a cold run (io_uring with RWF_DONTCACHE where the
+   machine allows it, said either way) and the card's busy share.
 
 Prints the card's name and power limit, the build times, the times, then
 a JSON line of the kernels and, last, the device JSON line. Any failure
@@ -52,6 +66,8 @@ raises and exits non-zero; so does a machine without a CUDA card.
 """
 
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -513,6 +529,314 @@ def phase_wide_rows(torch, qk, dg, card: str, rows: int = 1 << 21,
     return err
 
 
+def phase_streamed_golden(torch, native, Search, StreamedIndex,
+                          settings) -> None:
+    """The golden indexes served from host mmap on the card: device and
+    host scoring, warm and cold."""
+    for name in ("fasta7.cobs_classic", "fasta7.cobs_compact"):
+        for mode in ("device", "host"):
+            for cold in (False, True):
+                settings.streamed_host_score = mode
+                st = StreamedIndex(GOLDEN_DIR / name, device=DEVICE,
+                                   drop_cache=cold)
+                s = Search(st)
+                got = [(r.doc_name, r.score)
+                       for r in s.search(GOLDEN_QUERY, threshold=0.0)]
+                top = [(r.doc_name, r.score)
+                       for r in s.search(GOLDEN_QUERY, 0.0, num_results=3)]
+                torch.cuda.synchronize()
+                what = f"{name} streamed {mode}{' cold' if cold else ''}"
+                require(got == GOLDEN_LINES, f"{what}: {got}")
+                require(top == GOLDEN_LINES[:3], f"{what} top 3: {top}")
+                require(st.uploaded_batches == (2 if mode == "device"
+                                                else 0),
+                        f"{what}: {st.uploaded_batches} uploads")
+    settings.streamed_host_score = "auto"
+    print("phase 9 golden streamed: classic and compact, device and host "
+          "scoring, warm and cold, give the reference's lines; io_uring "
+          f"{'works' if native.uring_supported() else 'unavailable'}, "
+          f"RWF_DONTCACHE {native.dontcache_supported()}")
+
+
+def write_classic_index(path: Path, rows: int, docs: int, seed: int) -> int:
+    """A classic index file of `rows` Bloom rows over `docs` documents of
+    uniform random bits from `seed` (k=31, one hash, canonical), synced to
+    disk. Returns its size in bytes."""
+    from cobs_tpu_torch.fmt.classic import ClassicIndexHeader
+
+    header = ClassicIndexHeader(
+        term_size=31, canonicalize=1, signature_size=rows, num_hashes=1,
+        file_names=[f"doc{i:05d}" for i in range(docs)])
+    rng = np.random.default_rng(seed)
+    stripe = (64 << 20) // header.row_size
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        header.serialize(f)
+        for r in range(0, rows, stripe):
+            f.write(rng.bytes(min(stripe, rows - r) * header.row_size))
+        f.flush()
+        os.fsync(f.fileno())
+    return path.stat().st_size
+
+
+def read_through(path: Path) -> None:
+    """Read a file once, so its pages are in the OS page cache."""
+    with open(path, "rb") as f:
+        while f.read(64 << 20):
+            pass
+
+
+def same_ranking(a, b) -> bool:
+    """Ranked result lists equal, documents and scores, in order."""
+    return len(a) == len(b) and all(
+        np.array_equal(x._gidx, y._gidx) and np.array_equal(x._scores,
+                                                             y._scores)
+        for x, y in zip(a, b))
+
+
+def streamed_timer_line(timer, n: int) -> str:
+    return " ".join(f"{p}={timer.get(p) / n * 1e3:.3f}ms"
+                    for p in ("hashes", "io", "and rows", "add rows",
+                              "sort results"))
+
+
+def phase_streamed(torch, qk, dh, engine, native, Search, settings,
+                   card: str, rows: int = 1 << 21, B: int = 64,
+                   n_batches: int = 16, cold_batches: int = 2) -> dict:
+    """Phase 9: the streamed backend at the reference's default scale, a
+    classic index file of 2^21 rows x 1,250 B on local disk."""
+    from cobs_tpu_torch.experiments.dma_gather_bench import (
+        median_device_ms,
+    )
+
+    docs, L, k = 10_000, 1030, 100
+    path = ROOT / "bench_data" / "phase9_reference.cobs_classic"
+    free = shutil.disk_usage(ROOT).free
+    require(free > 2 * rows * docs // 8, f"{free} bytes free on disk: too "
+                                         "few for the phase 9 index file")
+    t0 = time.perf_counter()
+    size = write_classic_index(path, rows, docs, seed=9)
+    print(f"phase 9 wrote {path.name}: {size} bytes in "
+          f"{time.perf_counter() - t0:.1f} s")
+    try:
+        return _phase_streamed(torch, qk, dh, engine, native, Search,
+                               settings, card, path, size, B, n_batches,
+                               cold_batches, docs, L, k, median_device_ms)
+    finally:
+        path.unlink(missing_ok=True)
+
+
+def _phase_streamed(torch, qk, dh, engine, native, Search, settings, card,
+                    path, size, B, n_batches, cold_batches, docs, L, k,
+                    median_device_ms) -> dict:
+    rng = np.random.default_rng(10)
+    queries = acgt_queries(rng, B * n_batches, L)
+    batches = [queries[i:i + B] for i in range(0, len(queries), B)]
+    read_through(path)
+    require(settings.streamed_host_score == "auto",
+            "auto is not the default streamed score mode")
+    s_dev = Search(str(path), streamed=True)
+    st = s_dev.index_files[0]
+    require(isinstance(st, engine.StreamedIndex) and not st.scores_on_host(),
+            "Search(streamed=True) on the card is not a device-scored "
+            "StreamedIndex")
+    torch.cuda.synchronize()
+
+    # the streamed main path, with every count at 0 just before it
+    qk.LAUNCHES = dh.LAUNCHES = 0
+    first = s_dev.search_batch(batches[0], threshold=0.0, num_results=k)
+    torch.cuda.synchronize()
+    launches = {"gather_and_count": qk.LAUNCHES,
+                "rows_from_queries": dh.LAUNCHES}
+    require(min(launches.values()) > 0, f"the streamed search_batch did "
+                                        f"not launch both kernels: "
+                                        f"{launches}")
+
+    s_held = Search(str(path))
+    held = s_held.index_files[0]
+    require(isinstance(held, engine.DeviceIndex), "the reference index was "
+                                                  "not held on the card")
+    old = settings.max_device_index_bytes
+    settings.max_device_index_bytes = size - 1
+    try:
+        auto = Search(str(path)).index_files[0]
+    finally:
+        settings.max_device_index_bytes = old
+    require(isinstance(auto, engine.StreamedIndex),
+            "Search(path) above max_device_index_bytes did not stream")
+    del auto
+
+    # one batch's score vectors: streamed device (device and host
+    # hashing), streamed host and the device-held index
+    qbytes = [q.encode() for q in batches[0]]
+    hashes = engine.create_hashes(qbytes, 31, 1, 1)
+    want = engine.score_batch(held, engine.QueryBytes(qbytes))
+    got = {"device": st.score_batch(engine.QueryBytes(qbytes)),
+           "device, host hashing": st.score_batch(hashes)}
+    settings.streamed_host_score = "host"
+    try:
+        got["host"] = st.score_batch(hashes)
+    finally:
+        settings.streamed_host_score = "auto"
+    for mode, sc in got.items():
+        require(np.array_equal(sc, want), f"streamed {mode} scores != the "
+                                          "device-held index's")
+    # the two score modes alone on one batch of host hashes (median of 5)
+    score_ms = {}
+    for mode in ("device", "host"):
+        settings.streamed_host_score = mode
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            st.score_batch(hashes)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        score_ms[mode] = statistics.median(walls)
+    settings.streamed_host_score = "auto"
+
+    # the kernels against their plain versions at the streamed path's
+    # shapes: K1 on a batch's staged rows, the hash kernel with the
+    # streamed zero row
+    gmat, inv = st.stage(engine.QueryBytes(qbytes))
+    k1_err = max_err(qk.gather_and_count(gmat, inv, 1),
+                     qk.gather_and_count_reference(gmat, inv, 1))
+    qdata, qlens = engine._device_hash_args(st, engine.QueryBytes(qbytes))
+    sig, off = st.page_tables
+    hash_args = (qdata, qlens, 31, 1, 1, sig, off, st.zero_row)
+    hash_ok = torch.equal(dh.rows_from_queries(*hash_args),
+                          dh.rows_from_queries_reference(*hash_args))
+    torch.cuda.synchronize()
+    require(k1_err == 0, f"streamed K1 != plain: {k1_err}")
+    require(hash_ok, "streamed hash kernel != plain")
+    # the host gather of one batch's unique rows alone (median of 5)
+    real = np.unique(np.concatenate([st.row_indices(h).ravel()
+                                     for h in hashes]))
+    into = np.zeros((real.size, st.word_width * 4), dtype=np.uint8)
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        native.gather_rows(st._payload, st.page_size, real, into,
+                           settings.threads)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    gather_ms = statistics.median(walls)
+    require(np.array_equal(into[:, :st.page_size],
+                           np.asarray(st._payload[real])),
+            "the host gather != the payload rows")
+    del into
+
+    # q/s: the device-held index, streamed device and streamed host
+    # scoring, search_batch and search_stream, top-k and full ranking
+    s_host = Search(engine.StreamedIndex(str(path), device=DEVICE))
+    runs = {"held": s_held, "device": s_dev, "host": s_host}
+    qps, phases, ranked = {}, {}, {}
+    for nr in (k, 0):
+        for mode, s in runs.items():
+            settings.streamed_host_score = "host" if mode == "host" \
+                else "auto"
+            for how in ("batch", "stream"):
+                s.timer_.reset()
+                up0 = st.uploaded_batches, st.uploaded_rows, st.uploaded_bytes
+                t0 = time.perf_counter()
+                if how == "batch":
+                    out = [rl for bq in batches
+                           for rl in s.search_batch(bq, 0.0, nr)]
+                else:
+                    out = list(s.search_stream(queries, 0.0, nr,
+                                               batch_size=B))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                qps[mode, how, nr] = len(queries) / wall
+                phases[mode, how, nr] = streamed_timer_line(s.timer_,
+                                                            n_batches)
+                ranked[mode, how, nr] = out
+                if mode == "device" and how == "batch" and nr == k:
+                    ups = [a - b for a, b in zip(
+                        (st.uploaded_batches, st.uploaded_rows,
+                         st.uploaded_bytes), up0)]
+    settings.streamed_host_score = "auto"
+    for nr in (k, 0):
+        base = ranked["held", "batch", nr]
+        for key, out in ranked.items():
+            if key[2] == nr:
+                require(same_ranking(out, base), f"ranking of {key} != the "
+                                                 "device-held search_batch")
+    require(pairs(first) == pairs(ranked["device", "batch", k][:B]),
+            "the first streamed batch ranks differently")
+
+    # the upload: bytes per batch and the pinned H2D rate
+    up_batches, up_rows, up_bytes = ups
+    per_rows = up_rows // up_batches
+    pinned = torch.empty((per_rows + 1, st.word_width), dtype=torch.int32,
+                         pin_memory=True)
+    dst = torch.empty(pinned.shape, dtype=torch.int32, device=DEVICE)
+    h2d_ms = median_device_ms(
+        torch, lambda i: dst.copy_(pinned, non_blocking=True), reps=10)
+    h2d_gbs = pinned.numel() * 4 / h2d_ms / 1e6
+    del pinned, dst
+
+    busy_us, top = device_busy_us(
+        torch, lambda: [s_dev.search_batch(bq, 0.0, k) for bq in batches[:4]])
+    busy_ms = busy_us / 4 / 1e3
+    wall_ms = 1e3 / qps["device", "batch", k] * B
+
+    # cold: io_uring with RWF_DONTCACHE, or eviction after every batch
+    cold = engine.StreamedIndex(str(path), device=DEVICE, drop_cache=True)
+    s_cold = Search(cold)
+    cold.drop_cache()
+    cold_q = queries[:B * cold_batches]
+    cold_qps = {}
+    for how in ("batch", "stream"):
+        s_cold.timer_.reset()
+        t0 = time.perf_counter()
+        if how == "batch":
+            out = [rl for bq in batches[:cold_batches]
+                   for rl in s_cold.search_batch(bq, 0.0, k)]
+        else:
+            out = list(s_cold.search_stream(cold_q, 0.0, k, batch_size=B))
+        torch.cuda.synchronize()
+        cold_qps[how] = len(cold_q) / (time.perf_counter() - t0)
+        require(same_ranking(out, ranked["held", "batch", k][:len(cold_q)]),
+                f"cold search_{how} ranks differently")
+    cold_phases = streamed_timer_line(s_cold.timer_, cold_batches)
+
+    print(f"phase 9 streamed reference scale (B={B} T={L - 30} h=1 P=1 "
+          f"W={st.word_width}, {st.total_rows} rows x {st.page_size} B "
+          f"on disk, {card}): launches in one streamed search_batch "
+          f"{launches}; auto-selection streams above "
+          "max_device_index_bytes; one batch's scores equal across "
+          "streamed device (device and host hashing), streamed host and "
+          "the device-held index; K1 and the hash kernel == plain at the "
+          "streamed shapes; rankings equal across modes and paths")
+    print(f"phase 9 scoring one batch of host hashes, median of 5: device "
+          f"mode {score_ms['device']:.3f} ms, host mode "
+          f"{score_ms['host']:.3f} ms (settings.threads="
+          f"{settings.threads})")
+    print(f"phase 9 host gather of one batch's {real.size} unique rows "
+          f"alone, median of 5: {gather_ms:.3f} ms "
+          f"({real.size * st.page_size / gather_ms / 1e6:.2f} GB/s)")
+    print(f"phase 9 upload: {per_rows} unique rows per batch "
+          f"({up_rows / up_batches:.1f} on average), "
+          f"{up_bytes / up_batches / 1e6:.2f} MB uploaded per batch; pinned "
+          f"H2D of one batch {h2d_ms:.3f} ms ({h2d_gbs:.2f} GB/s)")
+    for nr in (k, 0):
+        for mode in runs:
+            for how in ("batch", "stream"):
+                print(f"phase 9 {mode:6s} search_{how} num_results={nr}: "
+                      f"{qps[mode, how, nr]:.0f} q/s; per batch: "
+                      f"{phases[mode, how, nr]}")
+    print(f"phase 9 cold (device scoring, {cold_batches} batches, io_uring "
+          f"{'works' if native.uring_supported() else 'unavailable'}, "
+          f"RWF_DONTCACHE {native.dontcache_supported()}): search_batch "
+          f"{cold_qps['batch']:.0f} q/s, search_stream "
+          f"{cold_qps['stream']:.0f} q/s; per batch in the last run: "
+          f"{cold_phases}")
+    print(f"phase 9 profiler over 4 streamed search_batch calls: "
+          f"{busy_ms:.4f} ms of device time per batch against "
+          f"{wall_ms:.3f} ms of wall ({100 * busy_ms / wall_ms:.1f} % busy); "
+          "largest: "
+          + "; ".join(f"{name[:60]} {us / 4:.1f} us" for us, name in top))
+    return {"launches": launches, "err": k1_err}
+
+
 def main() -> int:
     import torch
 
@@ -520,6 +844,7 @@ def main() -> int:
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
+    from cobs_tpu_torch import native
     from cobs_tpu_torch.experiments import dma_gather_bench as bench
     from cobs_tpu_torch.experiments import gather_count_bench as gc_bench
     from cobs_tpu_torch.ops import _build
@@ -575,14 +900,25 @@ def main() -> int:
     require(qk.LAUNCHES > 0, "the batch sweep did not launch K1")
     for row in k1_sweep:
         print(f"phase 8 K1 batch sweep ({card}): " + gc_bench.format_row(row))
+    torch.cuda.empty_cache()
+
+    phase_streamed_golden(torch, native, Search, engine.StreamedIndex,
+                          settings)
+    streamed = phase_streamed(torch, qk, dh, engine, native, Search,
+                              settings, card)
+    err = max(err, streamed["err"])
 
     entries = {
         "gather_and_count": dict(
             launches=ref["launches"]["gather_and_count"], max_abs_err=err,
-            library_ms=None, **ref["k1"]),
+            library_ms=None,
+            streamed_launches=streamed["launches"]["gather_and_count"],
+            **ref["k1"]),
         "rows_from_queries": dict(
             launches=ref["launches"]["rows_from_queries"], max_abs_err=0,
-            library_ms=None, **ref["hash"]),
+            library_ms=None,
+            streamed_launches=streamed["launches"]["rows_from_queries"],
+            **ref["hash"]),
         "dma_gather_rows": dict(
             launches=k2_launches, max_abs_err=0, ms=k2["ms"],
             plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],

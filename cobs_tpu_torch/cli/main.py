@@ -4,9 +4,10 @@ Same flags, defaults and output as those subtools in cobs_tpu/cli/main.py
 (reference: src/cobs.cpp:471-527, 605-730), plus `--device`:
 
     python -m cobs_tpu_torch.cli.main query -i INDEX [-t 0.8] [-l 0] \\
-        [--device cuda] (QUERY | -f QUERIES.fa)
+        [--streamed | --load-complete] [--device cuda] \\
+        (QUERY | -f QUERIES.fa)
     python -m cobs_tpu_torch.cli.main benchmark-fpr INDEX [-q 10000] \\
-        [-k 1000] [-b 64] [-l 0] [--device cuda]
+        [-k 1000] [-b 64] [-l 0] [--streamed] [--cold] [--device cuda]
 """
 
 import argparse
@@ -54,6 +55,12 @@ def cmd_query(argv):
                         "matching, default: 0.8")
     p.add_argument("-l", "--limit", type=int, default=0,
                    help="number of results to return, default: all")
+    p.add_argument("--load-complete", action="store_true",
+                   help="load the whole index onto the device, whatever "
+                        "its size")
+    p.add_argument("--streamed", action="store_true",
+                   help="serve the index from a host mmap (for indexes "
+                        "larger than device memory)")
     p.add_argument("--device", default=None,
                    help="torch device holding the index, default: "
                         "settings.device (cuda)")
@@ -61,7 +68,13 @@ def cmd_query(argv):
 
     from cobs_tpu_torch.query.search import Search
 
-    s = Search(args.index, device=args.device)
+    if args.streamed and args.load_complete:
+        print("Pass at most one of --streamed and --load-complete.",
+              file=sys.stderr)
+        return -1
+    s = Search(args.index, device=args.device,
+               streamed=(True if args.streamed
+                         else False if args.load_complete else None))
     if args.query:
         for res in s.search(args.query, args.threshold, args.limit):
             print(f"{res.doc_name}\t{res.score}")
@@ -96,26 +109,30 @@ def cmd_benchmark_fpr(argv):
     p.add_argument("-l", "--limit", type=int, default=0,
                    help="top-k results per query (0 = full ranking)")
     p.add_argument("--streamed", action="store_true",
-                   help="benchmark the host-mmap streamed backend (not "
-                        "ported yet)")
+                   help="benchmark the host-mmap streamed backend")
     p.add_argument("--cold", action="store_true",
-                   help="evict the index from the OS page cache after "
-                        "every batch (streamed backend; not ported yet)")
+                   help="read rows past the OS page cache (io_uring "
+                        "RWF_DONTCACHE, else evict the index after every "
+                        "batch; implies --streamed) so numbers reflect "
+                        "disk, not cache")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="torch device holding the index, default: "
                         "settings.device (cuda)")
     args = p.parse_args(argv)
-    if args.streamed or args.cold:
-        raise NotImplementedError(
-            "--streamed/--cold need the streamed (host-mmap) backend, "
-            "which is not ported to cobs_tpu_torch yet")
 
+    from cobs_tpu_torch.query.engine import StreamedIndex
     from cobs_tpu_torch.query.search import Search
     from cobs_tpu_torch.utils.misc import random_sequence_rng
 
     rng = np.random.default_rng(args.seed)
-    s = Search(args.in_file, device=args.device)
+    backend = None
+    if args.streamed or args.cold:
+        backend = StreamedIndex(args.in_file, device=args.device,
+                                drop_cache=args.cold)
+        s = Search(backend)
+    else:
+        s = Search(args.in_file, device=args.device)
     # at least one whole batch of warm-up: the first batch builds and
     # loads the CUDA kernels
     warmup = [random_sequence_rng(args.num_kmers + 30, rng)
@@ -127,6 +144,8 @@ def cmd_benchmark_fpr(argv):
                              batch_size=args.batch):
         pass
     s.timer().reset()
+    if args.cold:
+        backend.drop_cache()  # the measured loop starts cold too
 
     counts: dict[int, int] = {}
     t0 = time.perf_counter()
@@ -151,8 +170,8 @@ def cmd_benchmark_fpr(argv):
           f" warmup={len(warmup)}"
           f" results={len(last_result)}"
           f" batch={args.batch}"
-          " backend=device"
-          " cold=off"
+          f" backend={'device' if backend is None else 'streamed'}"
+          f" cold={_cold_mode(args.cold)}"
           f" t_hashes={t.get('hashes')}"
           f" t_io={t.get('io')}"
           f" t_and={t.get('and rows')}"
@@ -163,6 +182,18 @@ def cmd_benchmark_fpr(argv):
     for score in sorted(counts):
         print(f"RESULT name=benchmark_fpr fpr={score} dist={counts[score]}")
     return 0
+
+
+def _cold_mode(cold: bool) -> str:
+    """How the RESULT line's run was kept cold: on-dontcache when the
+    reads bypassed the page cache (RWF_DONTCACHE, the reference's
+    O_DIRECT analog), on-evict when the index was evicted after every
+    batch instead."""
+    if not cold:
+        return "off"
+    from cobs_tpu_torch import native
+
+    return "on-dontcache" if native.dontcache_supported() else "on-evict"
 
 
 SUBTOOLS = {

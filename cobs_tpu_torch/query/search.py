@@ -13,6 +13,9 @@ device. Mirrors the observable semantics of the reference `ClassicSearch`
 `search_batch` scores many queries in one kernel launch per index;
 `search_stream` is the serving loop over an iterable of queries. Query
 hashing runs on the index's device by default (settings.device_hash).
+Index files above settings.max_device_index_bytes are served by the
+streamed backend (`StreamedIndex`), which a federation may mix with
+device-held indexes.
 """
 
 import collections
@@ -32,7 +35,9 @@ from cobs_tpu_torch.ops.device_hash import (
 from cobs_tpu_torch.query.engine import (
     DeviceIndex,
     QueryBytes,
+    StreamedIndex,
     create_hashes,
+    int32_row_ids,
     prepack_query_bytes,
     resolve_device,
     score_batch_async,
@@ -56,21 +61,34 @@ _HASH_AHEAD = {"host": 2, "device": 0}
 _DEPTH = 2
 
 
-def _open_index(path, device) -> DeviceIndex:
-    """Load an index file onto `device`. Files above
-    settings.max_device_index_bytes are refused: cobs_tpu streams them
-    from host mmap (StreamedIndex), a backend not ported yet."""
-    try:
-        size = os.path.getsize(path)
-    except OSError:
-        raise FileIOError(f'Could not open index path "{path}"') from None
-    if size > settings.max_device_index_bytes:
-        raise NotImplementedError(
-            f'index "{path}" is {size} bytes, above '
-            f"settings.max_device_index_bytes="
-            f"{settings.max_device_index_bytes}; the streamed (host-mmap) "
-            "backend for such indexes is not ported to cobs_tpu_torch yet")
-    return DeviceIndex.from_file(path, device)
+def _open_index(path, device, streamed=None):
+    """Open an index file for `device`. streamed=True serves it from a
+    host mmap (StreamedIndex), False loads it onto the device
+    (DeviceIndex, the reference's --load-complete), None picks: the
+    device unless the file is larger than
+    settings.max_device_index_bytes (settings.load_complete_index
+    forces the device)."""
+    if streamed is None:
+        if settings.load_complete_index:
+            streamed = False
+        else:
+            try:
+                size = os.path.getsize(path)
+            except OSError:
+                raise FileIOError(
+                    f'Could not open index path "{path}"') from None
+            streamed = size > settings.max_device_index_bytes
+    return (StreamedIndex(path, device) if streamed
+            else DeviceIndex.from_file(path, device))
+
+
+def _score_async(ix, payload, num_results: int, timer):
+    """Enqueue one batch on one index (top-k when num_results > 0)."""
+    if isinstance(ix, StreamedIndex):
+        return (ix.score_topk_async(payload, num_results, timer)
+                if num_results > 0 else ix.score_batch_async(payload, timer))
+    return (score_topk_async(ix, payload, num_results, timer)
+            if num_results > 0 else score_batch_async(ix, payload, timer))
 
 
 class QueryError(Exception):
@@ -152,24 +170,28 @@ class ResultList:
 
 
 class Search:
-    """Query one or more device-resident indices.
+    """Query one or more indices, device-held or streamed.
 
-    Accepts an index path (auto-detect classic/compact), a DeviceIndex, or
-    a list of either (multi-index federation, reference:
+    Accepts an index path (auto-detect classic/compact), a DeviceIndex, a
+    StreamedIndex, or a list of them (multi-index federation, reference:
     cobs/query/classic_search.cpp:413-435).
     """
 
-    def __init__(self, indices, device=None):
-        """device: where index paths are loaded (None = settings.device).
-        Raises when it names CUDA and CUDA is absent. DeviceIndex inputs
-        are used on the device they lie on."""
+    def __init__(self, indices, device=None, streamed=None):
+        """device: where index paths are loaded or scored (None =
+        settings.device). Raises when it names CUDA and CUDA is absent.
+        Index objects are used on the device they were made for.
+        streamed: True = serve index paths from host mmap
+        (StreamedIndex), False = load them onto the device, None = by
+        file size (`_open_index`)."""
         if not isinstance(indices, (list, tuple)):
             indices = [indices]
-        paths = [ix for ix in indices if not isinstance(ix, DeviceIndex)]
+        opened = (DeviceIndex, StreamedIndex)
+        paths = [ix for ix in indices if not isinstance(ix, opened)]
         dev = resolve_device(device) if device is not None or paths \
             else None
         self.index_files = [
-            ix if isinstance(ix, DeviceIndex) else _open_index(ix, dev)
+            ix if isinstance(ix, opened) else _open_index(ix, dev, streamed)
             for ix in indices]
         self.timer_ = Timer()
 
@@ -181,12 +203,18 @@ class Search:
         return self.search_batch([query], threshold, num_results)[0]
 
     @staticmethod
-    def _use_device_hash() -> bool:
-        """Whether queries are hashed on the index's device
-        (settings.device_hash "auto" or "device"; every backend of the
-        port is a DeviceIndex)."""
-        return str(settings.device_hash).lower() in (
-            "auto", "device", "1", "true")
+    def _use_device_hash(ix) -> bool:
+        """Whether queries for index `ix` are hashed on its device:
+        settings.device_hash "auto" or "device", row ids that fit the
+        hash kernel's int32, and, for a StreamedIndex, device scoring
+        (host scoring needs host row ids). Decided per index, so a
+        federation may hash some indexes on the host."""
+        if str(settings.device_hash).lower() not in (
+                "auto", "device", "1", "true"):
+            return False
+        if not int32_row_ids(ix):
+            return False
+        return not (isinstance(ix, StreamedIndex) and ix.scores_on_host())
 
     def _hash_batch(self, qbytes) -> list:
         """Host stage: per index, a QueryBytes payload (validated and
@@ -200,7 +228,7 @@ class Search:
         self.timer_.active("hashes")
         hashed = []
         for ix in self.index_files:
-            if self._use_device_hash():
+            if self._use_device_hash(ix):
                 qb, bad = self._query_bytes(ix, qbytes)
                 # raises the reference's error for the first bad query
                 validate_queries([qbytes[b] for b in np.flatnonzero(bad)],
@@ -238,7 +266,7 @@ class Search:
         timer.active("hashes")
         hashed = []
         for ix in self.index_files:
-            if self._use_device_hash():
+            if self._use_device_hash(ix):
                 qb, bad = self._query_bytes(ix, qbytes)
                 for b in np.flatnonzero(bad):
                     if errors[b] is None:
@@ -282,12 +310,9 @@ class Search:
 
     def _dispatch_async(self, hashed, num_results) -> list:
         """Enqueue one pre-hashed batch on every index without waiting
-        for the device; one pending handle per index."""
-        if num_results > 0:
-            return [score_topk_async(ix, hashed[k], num_results,
-                                     self.timer_)
-                    for k, ix in enumerate(self.index_files)]
-        return [score_batch_async(ix, hashed[k], self.timer_)
+        for the device (a streamed index in host mode scores on its own
+        worker thread); one pending handle per index."""
+        return [_score_async(ix, hashed[k], num_results, self.timer_)
                 for k, ix in enumerate(self.index_files)]
 
     def _finish_batch(self, qbytes, errors, pending, threshold,
@@ -332,9 +357,9 @@ class Search:
 
         Queries are cut into batches of `batch_size`, in order. The host
         stage (validation and padding, or numpy hashing) runs on one
-        worker thread ahead of the calling thread when hashing runs on
-        the host, and inline when it runs on the device (_HASH_AHEAD);
-        the worker makes no CUDA call. The calling thread uploads,
+        worker thread ahead of the calling thread when any index hashes
+        on the host, and inline when all hash on the device
+        (_HASH_AHEAD); the worker makes no CUDA call. The calling thread uploads,
         launches, fetches and ranks, and keeps a bounded window of
         dispatched batches on the device, so batch k's fetch and ranking
         overlap batch k+1's kernels. Full ranking and top-k
@@ -345,7 +370,9 @@ class Search:
         aborting the stream.
         """
         it = iter(queries)
-        ahead = _HASH_AHEAD["device" if self._use_device_hash() else "host"]
+        ahead = _HASH_AHEAD["device" if all(
+            self._use_device_hash(ix) for ix in self.index_files)
+            else "host"]
 
         def hash_next():
             batch = list(itertools.islice(it, batch_size))

@@ -20,7 +20,7 @@ import torch
 import cobs_tpu
 from cobs_tpu.cli.main import main as jax_main
 from cobs_tpu.settings import settings as jax_settings
-from cobs_tpu_torch import Search, settings
+from cobs_tpu_torch import Search, StreamedIndex, settings
 from cobs_tpu_torch.cli.main import main as torch_main
 
 torch.set_num_threads(2)
@@ -181,6 +181,14 @@ def test_cuda_requested_without_cuda_raises(capsys):
 
 
 def test_index_over_device_budget_raises(monkeypatch):
+    """A file above the device budget is served by the streamed backend,
+    with the same results; without CUDA, opening it for the default
+    device raises instead of carrying on on the CPU."""
     monkeypatch.setattr(settings, "max_device_index_bytes", 1000)
-    with pytest.raises(NotImplementedError, match="streamed"):
-        Search(str(GOLDEN["compact"]), device="cpu")
+    s = Search(str(GOLDEN["compact"]), device="cpu")
+    assert isinstance(s.index_files[0], StreamedIndex)
+    assert [(r.doc_name, r.score)
+            for r in s.search(GOLDEN_QUERY, 0.0)] == GOLDEN_LINES
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Search(str(GOLDEN["compact"]))

@@ -22,7 +22,7 @@ from cobs_tpu.settings import settings as jax_settings
 from cobs_tpu_torch import QueryError, Search, settings
 from cobs_tpu_torch.cli.main import main as torch_main
 from cobs_tpu_torch.query import search as search_mod
-from cobs_tpu_torch.query.engine import QueryBytes
+from cobs_tpu_torch.query.engine import DeviceIndex, QueryBytes
 from cobs_tpu_torch.settings import Settings
 
 torch.set_num_threads(2)
@@ -192,7 +192,8 @@ def test_device_hash_setting_reads_environment(monkeypatch, value, device):
     monkeypatch.setenv("COBS_TPU_DEVICE_HASH", value)
     assert Settings().device_hash == value
     settings.device_hash = value
-    assert Search._use_device_hash() is device
+    assert Search._use_device_hash(DeviceIndex.from_file(GOLDEN, "cpu")) \
+        is device
 
 
 def _result_keys(out: str) -> list[str]:
@@ -216,9 +217,20 @@ def test_benchmark_fpr_keys_match_cobs_tpu(capsys, monkeypatch):
 
 @pytest.mark.parametrize("flag", ["--streamed", "--cold"])
 def test_benchmark_fpr_streamed_not_ported(capsys, flag):
-    assert torch_main(["benchmark-fpr", str(GOLDEN), "--device", "cpu",
-                       flag]) == 1
-    assert "not ported" in capsys.readouterr().err
+    """--streamed and --cold run the streamed backend (once refused as
+    not ported) and print cobs_tpu's RESULT keys with backend=streamed
+    and how the cold run was kept cold."""
+    args = ["benchmark-fpr", str(GOLDEN), "-q", "20", "-k", "40", "-w", "2",
+            "-b", "8", flag]
+    assert jax_main(args) == 0
+    want = capsys.readouterr().out
+    assert torch_main(args + ["--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    assert _result_keys(got) == _result_keys(want)
+    assert " backend=streamed " in got and " queries=20 " in got
+    cold = re.search(r" cold=(\S+) ", got).group(1)
+    assert cold == ("off" if flag == "--streamed"
+                    else re.search(r" cold=(\S+) ", want).group(1))
 
 
 def test_cuda_paths_raise_without_cuda(capsys):
