@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Smoke test of the cobs_tpu_torch query path on one CUDA card.
+"""Smoke test of the cobs_tpu_torch query and construction paths on one
+CUDA card.
 
     python3 chip_smoke.py
 
-Builds the three CUDA kernels from the sources in this checkout (one nvcc
+Builds the four CUDA kernels from the sources in this checkout (one nvcc
 per source, all started together), then runs these phases, each ending in
 torch.cuda.synchronize():
 
@@ -58,7 +59,23 @@ torch.cuda.synchronize():
    streamed path and equal their plain versions at its shapes. Prints
    q/s, `Timer` phases, unique rows and bytes uploaded per batch, the
    pinned H2D rate, a cold run (io_uring with RWF_DONTCACHE where the
-   machine allows it, said either way) and the card's busy share.
+   machine allows it, said either way) and the card's busy share;
+10. construction: the bit scatter kernel against its plain version, bit
+   for bit and again on a second launch, at its edges (n = 0, D in {1, 7,
+   8, 31, 33, 1000}, every update to one row, rows 0 and R1 - 1,
+   duplicates, updates outside the matrix, n not a multiple of the block)
+   and the device build in many upload chunks against its CPU build; the
+   CLI's classic-construct and compact-construct on a copy of
+   tests/data/fasta == the golden files; then 1,000 FASTA documents of
+   random ACGT from a seed, 250 kbp-1 Mbp (k=31, h=1, fpr 0.3,
+   canonical), under bench_data/ and deleted afterwards: the classic and
+   the compact index built on the card (the kernel launched, count at 0
+   just before each) and through the host scatter (not launched), files
+   identical; the kernel alone at a full upload chunk against its plain
+   version and its bound; stage times and updates/s; 64 queries of 1,030
+   bp cut from known documents on the device-built classic index: each
+   source document scores all 1,000 terms, and the top 100 equal streamed
+   host scoring's.
 
 Prints the card's name and power limit, the build times, the times, then
 a JSON line of the kernels and, last, the device JSON line. Any failure
@@ -89,6 +106,8 @@ KERNELS = {  # name -> (source, the TPU or XLA code it replaces)
                           "cobs_tpu/ops/device_hash.py:190"),
     "dma_gather_rows": ("cobs_tpu_torch/ops/csrc/dma_gather.cu",
                         "cobs_tpu/ops/dma_gather.py:79"),
+    "construct_scatter": ("cobs_tpu_torch/ops/csrc/construct_scatter.cu",
+                          "cobs_tpu/construct/device.py:46"),
 }
 DEVICE = "cuda"
 #: H100 SXM peaks (NVIDIA's data sheet): device memory bytes/s, and the
@@ -837,6 +856,332 @@ def _phase_streamed(torch, qk, dh, engine, native, Search, settings, card,
     return {"launches": launches, "err": k1_err}
 
 
+#: the construction phase's corpus: 1,000 FASTA documents of random ACGT,
+#: lengths spread evenly over 250 kbp-1 Mbp (a bacterial collection's
+#: shape; real assemblies run to ~5 Mbp each)
+CONSTRUCT_DOCS = 1000
+CONSTRUCT_LENGTHS = (250_000, 1_000_000)
+CONSTRUCT_QUERIES, CONSTRUCT_QUERY_LEN = 64, 1030
+
+
+def write_fasta_corpus(root: Path, n_docs: int, lo: int, hi: int,
+                       seed: int) -> list[int]:
+    """n_docs FASTA files of random ACGT from `seed` under root, 80
+    letters a line, lengths spread evenly over [lo, hi] in a shuffled
+    order. Returns the lengths by document number."""
+    rng = np.random.default_rng(seed)
+    lengths = np.linspace(lo, hi, n_docs).astype(np.int64)
+    rng.shuffle(lengths)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    root.mkdir(parents=True, exist_ok=True)
+    for i, n in enumerate(lengths.tolist()):
+        seq = acgt[rng.integers(0, 4, n, dtype=np.uint8)]
+        full = n // 80 * 80
+        lines = np.empty((n // 80, 81), dtype=np.uint8)
+        lines[:, :80] = seq[:full].reshape(-1, 80)
+        lines[:, 80] = ord("\n")
+        with open(root / f"doc{i:04d}.fasta", "wb") as f:
+            f.write(b">doc%d\n" % i)
+            f.write(lines.tobytes())
+            if n > full:
+                f.write(seq[full:].tobytes() + b"\n")
+    return lengths.tolist()
+
+
+def read_fasta_sequence(path: Path) -> bytes:
+    return b"".join(path.read_bytes().split(b"\n")[1:])
+
+
+def phase_construct_edges(torch, cs, device_build) -> None:
+    """The bit scatter kernel against its plain version on the card, bit
+    for bit and again on a second launch: n = 0; D in {1, 7, 8, 31, 33,
+    1000}; every update to one row; rows 0 and R1 - 1; duplicates; updates
+    outside the matrix; n not a multiple of the block. Then the device
+    build of a few documents in chunks of 1,000 updates (many chunks
+    through the ring) against its CPU build. Returns the largest
+    """
+    cases = 0
+    for D in (1, 7, 8, 31, 33, 1000):
+        Wc = -(-D // 32)
+        for case in ("random", "one_row", "edges", "empty", "dropped",
+                     "odd"):
+            R1 = 4099
+            n = {"empty": 0, "odd": 1_000_003}.get(case, 70_000)
+            rows = torch.randint(0, R1, (n,), dtype=torch.int32,
+                                 device=DEVICE)
+            docs = torch.randint(0, D, (n,), dtype=torch.int32,
+                                 device=DEVICE)
+            if case == "one_row":
+                rows.fill_(R1 // 2)
+            elif case == "edges":
+                rows = torch.where(rows % 2 == 0, 0, R1 - 1).int()
+                rows[1::2], docs[1::2] = rows[::2], docs[::2]
+            elif case == "dropped":
+                rows[::7] = R1 + 3
+                rows[1::7] = -1
+                docs[2::7] = 32 * Wc
+                docs[3::7] = -5
+            start = torch.randint(-2**31, 2**31 - 1, (R1, Wc),
+                                  dtype=torch.int32, device=DEVICE)
+            want = cs.construct_scatter_reference(start.clone(), rows, docs)
+            for _ in range(2):
+                got = cs.construct_scatter(start.clone(), rows, docs)
+                torch.cuda.synchronize()
+                require(torch.equal(got, want),
+                        f"construct_scatter D={D} {case}: kernel != plain")
+            cases += 1
+    # the device build through many upload chunks against the CPU build
+    docs_dir = ROOT / "bench_data" / "construct_edges"
+    write_fasta_corpus(docs_dir, 37, 200, 3000, seed=21)
+    from cobs_tpu_torch.ingest.document_list import DocumentList
+
+    entries = DocumentList(docs_dir).list()
+    sig, row_size = 10_007, -(-len(entries) // 8)
+    want = device_build(entries, sig, row_size, 31, 2, 1, print,
+                        device="cpu")
+    for chunk in (1000, 7777, 1 << 22):
+        got = device_build(entries, sig, row_size, 31, 2, 1, print,
+                           device=DEVICE, chunk=chunk)
+        require(np.array_equal(got, want), f"device build in chunks of "
+                                           f"{chunk} != CPU build")
+    shutil.rmtree(docs_dir)
+    print(f"phase 10 construct_scatter: kernel == plain, and bit-equal on "
+          f"a second launch, at {cases} edge shapes; the device build of "
+          f"37 documents in chunks of 1,000 / 7,777 / 2^22 updates == its "
+          f"CPU build")
+
+
+def phase_construct_golden(torch, cs, cli_main) -> None:
+    """`classic-construct` and `compact-construct` of the port's CLI on a
+    copy of tests/data/fasta (no cache files), on the card: the golden
+    files byte for byte."""
+    src = ROOT / "bench_data" / "golden_fasta"
+    shutil.rmtree(src, ignore_errors=True)
+    shutil.copytree(ROOT / "tests" / "data" / "fasta", src,
+                    ignore=shutil.ignore_patterns("*.cobs_cache"))
+    before = cs.LAUNCHES
+    try:
+        for kind in ("classic", "compact"):
+            out = src.parent / f"golden.cobs_{kind}"
+            rc = cli_main([f"{kind}-construct", str(src), str(out),
+                           "--clobber"])
+            require(rc == 0, f"{kind}-construct exited {rc}")
+            require(out.read_bytes() == (GOLDEN_DIR / f"fasta7.cobs_{kind}")
+                    .read_bytes(), f"{kind}-construct != the golden file")
+            out.unlink()
+    finally:
+        shutil.rmtree(src)
+    require(cs.LAUNCHES > before, "the golden builds did not launch the "
+                                  "bit scatter kernel")
+    print("phase 10 golden: classic-construct and compact-construct on the "
+          "card == tests/data/golden/fasta7.cobs_{classic,compact}")
+
+
+def same_file(a: Path, b: Path) -> bool:
+    if a.stat().st_size != b.stat().st_size:
+        return False
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x, y = fa.read(64 << 20), fb.read(64 << 20)
+            if x != y:
+                return False
+            if not x:
+                return True
+
+
+def construct_stages(text: str) -> dict:
+    """Seconds per construction stage, summed over the TIMER records in
+    `text` (every batch and page; records of several threads may share a
+    line with other log text): the batch builds' phases, and "combine"
+    from the classic combine and the compact assembly."""
+    import re
+
+    out: dict = {}
+    for m in re.finditer(r"TIMER info=(\S+)((?: [^\s=]+=[-+.e\d]+)+)",
+                         text):
+        info = m.group(1)
+        for part in m.group(2).split():
+            name, _, val = part.partition("=")
+            if name == "total":
+                continue
+            if info != "classic_construct_from_documents":
+                name = "combine"
+            out[name] = out.get(name, 0.0) + float(val)
+    return out
+
+
+def construct_timed(build, docs, out: Path, params) -> tuple[float, dict]:
+    """Wall seconds of one construction and its TIMER phases (its log on
+    standard error is captured)."""
+    import contextlib
+    import io
+
+    from cobs_tpu_torch import DocumentList
+
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        build(DocumentList(docs), out, index_params=params)
+    return time.perf_counter() - t0, construct_stages(err.getvalue())
+
+
+def phase_construct(torch, cs, card: str, n_docs: int = CONSTRUCT_DOCS,
+                    lengths=CONSTRUCT_LENGTHS) -> dict:
+    """Phase 10: construction at a bacterial collection's shape; see the
+    module docstring."""
+    root = ROOT / "bench_data" / "construct"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    lens = write_fasta_corpus(root / "docs", n_docs, *lengths, seed=10)
+    print(f"phase 10 wrote {n_docs} FASTA documents, {sum(lens)} bp, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    try:
+        return _phase_construct(torch, cs, card, root, lens)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _phase_construct(torch, cs, card, root: Path, lens) -> dict:
+    import cobs_tpu_torch as ct
+    from cobs_tpu_torch.construct.device import UPDATE_CHUNK
+    from cobs_tpu_torch.core.params import calc_signature_size
+    from cobs_tpu_torch.experiments.dma_gather_bench import (
+        median_device_ms,
+    )
+    from cobs_tpu_torch.fmt.classic import read_classic_header
+
+    docs = root / "docs"
+    k, h = 31, 1
+    updates = sum(n - k + 1 for n in lens) * h
+    builds = {"classic": (ct.classic_construct, ct.ClassicIndexParameters),
+              "compact": (ct.compact_construct, ct.CompactIndexParameters)}
+    walls, phases, launches = {}, {}, {}
+    # the main path, device builds, with the count at 0 just before each
+    for kind, (build, P) in builds.items():
+        cs.LAUNCHES = 0
+        walls[kind, "device"], phases[kind, "device"] = construct_timed(
+            build, docs, root / f"device.cobs_{kind}",
+            P(term_size=k, num_hashes=h, false_positive_rate=0.3))
+        torch.cuda.synchronize()
+        launches[kind] = cs.LAUNCHES
+        require(launches[kind] > 0, f"the {kind} device build did not "
+                                    "launch the bit scatter kernel")
+    for kind, (build, P) in builds.items():
+        before = cs.LAUNCHES
+        walls[kind, "host"], phases[kind, "host"] = construct_timed(
+            build, docs, root / f"host.cobs_{kind}",
+            P(term_size=k, num_hashes=h, false_positive_rate=0.3,
+              device_construct=False))
+        require(cs.LAUNCHES == before, f"the {kind} host build launched "
+                                       "the kernel")
+        require(same_file(root / f"device.cobs_{kind}",
+                          root / f"host.cobs_{kind}"),
+                f"{kind}: the device-built file != the host-built file")
+    hdr = read_classic_header(root / "device.cobs_classic")
+    sig = calc_signature_size(max(lens) - k + 1, h, 0.3)
+    require(hdr.signature_size == sig, f"classic signature size "
+                                       f"{hdr.signature_size} != {sig}")
+
+    # the kernel alone at the main path's shape: four full upload chunks
+    # of real updates (the first documents' rows, in order, as the device
+    # build stages them) into the classic batch's words
+    from cobs_tpu_torch.construct.bitmatrix import doc_row_indices
+    from cobs_tpu_torch.ingest.document_list import DocumentList
+
+    R1, Wc = sig + 1, -(-hdr.row_size // 4)
+    rows, docs_of = [], []
+    for d, entry in enumerate(DocumentList(docs).list()):
+        for w in entry.term_windows(k):
+            r = doc_row_indices(w, sig, h, 1)[0]
+            rows.append(r.astype(np.int32))
+            docs_of.append(np.full(r.size, d, dtype=np.int32))
+        if sum(r.size for r in rows) >= 4 * UPDATE_CHUNK:
+            break
+    rows, docs_of = np.concatenate(rows), np.concatenate(docs_of)
+    n = min(UPDATE_CHUNK, rows.size // 4)
+    chunks = [(torch.from_numpy(rows[i * n:(i + 1) * n]).to(DEVICE),
+               torch.from_numpy(docs_of[i * n:(i + 1) * n]).to(DEVICE))
+              for i in range(4)]
+    del rows, docs_of
+    words = torch.zeros((R1, Wc), dtype=torch.int32, device=DEVICE)
+    got = cs.construct_scatter(words.clone(), *chunks[0])
+    want = cs.construct_scatter_reference(words.clone(), *chunks[0])
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), "construct_scatter at the main path's "
+                                    "shape: kernel != plain")
+    del got, want
+    kernel_ms = median_device_ms(
+        torch, lambda i: cs.construct_scatter(words, *chunks[i % 4]))
+    plain_ms = median_device_ms(
+        torch, lambda i: cs.construct_scatter_reference(words,
+                                                        *chunks[i % 4]),
+        reps=5)
+    r, d = chunks[0]
+    distinct = torch.unique(r.long() * Wc + (d.long() >> 5)).numel()
+    nbytes = 8 * n + 2 * 4 * distinct
+    bound_ms, bound_by = bound(nbytes, n)
+    del words, chunks
+    torch.cuda.empty_cache()
+
+    # query what was built: 64 queries of 1,030 bp cut from known
+    # documents; each source document scores all 1,000 terms, and the
+    # top 100 equal host scoring's on the same file
+    rng = np.random.default_rng(11)
+    picks = rng.choice(len(lens), CONSTRUCT_QUERIES,
+                       replace=len(lens) < CONSTRUCT_QUERIES)
+    queries, sources = [], []
+    for i in picks.tolist():
+        seq = read_fasta_sequence(docs / f"doc{i:04d}.fasta")
+        o = int(rng.integers(0, len(seq) - CONSTRUCT_QUERY_LEN))
+        queries.append(seq[o:o + CONSTRUCT_QUERY_LEN].decode())
+        sources.append(f"doc{i:04d}")
+    path = str(root / "device.cobs_classic")
+    held = ct.Search(path)
+    require(isinstance(held.index_files[0], ct.DeviceIndex),
+            "the built classic index was not held on the card")
+    got = held.search_batch(queries, 0.0, 100)
+    terms = CONSTRUCT_QUERY_LEN - k + 1
+    for res, src in zip(got, sources):
+        hit = [r.score for r in res if r.doc_name == src]
+        require(hit == [terms], f"query from {src}: source scores {hit}, "
+                                f"not {terms}")
+    old = ct.settings.streamed_host_score
+    ct.settings.streamed_host_score = "host"
+    try:
+        host = ct.Search(path, streamed=True).search_batch(queries, 0.0, 100)
+    finally:
+        ct.settings.streamed_host_score = old
+    require(pairs(got) == pairs(host), "top 100 of the device-held index "
+                                       "!= streamed host scoring's")
+    torch.cuda.synchronize()
+
+    gb = hdr.signature_size * hdr.row_size / 1e9
+    print(f"phase 10 construction ({card}): {len(lens)} documents, "
+          f"{updates} updates (k={k}, h={h}, fpr 0.3, canonical); classic "
+          f"{hdr.signature_size} rows x {hdr.row_size} B ({gb:.3f} GB), "
+          f"words on the card {R1 * Wc * 4 / 1e9:.3f} GB; device and host "
+          f"builds give identical classic and compact files; kernel "
+          f"launches {launches}; every query scores its source document "
+          f"{terms}; top 100 == streamed host scoring")
+    for (kind, how), wall in walls.items():
+        line = " ".join(f"{name}={sec:.3f}s"
+                        for name, sec in phases[kind, how].items())
+        print(f"phase 10 {kind} {how} build: {wall:.3f} s wall, "
+              f"{updates / wall / 1e6:.1f} M updates/s end to end; stages "
+              f"(summed over batches and pages): {line}")
+    dev_kernel = phases["classic", "device"].get("device_kernel", 0.0)
+    print(f"phase 10 construct_scatter: {kernel_ms:.4f} ms per launch of "
+          f"{n} updates ({n / kernel_ms / 1e6:.2f} G updates/s), bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B, {distinct} distinct "
+          f"words), plain {plain_ms:.3f} ms; classic build: "
+          f"{launches['classic']} launches, {dev_kernel * 1e3:.1f} ms of "
+          f"kernel ({updates / max(dev_kernel, 1e-9) / 1e9:.2f} G "
+          f"updates/s)")
+    return {"launches": launches["classic"] + launches["compact"],
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
 def main() -> int:
     import torch
 
@@ -845,9 +1190,12 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 1
     from cobs_tpu_torch import native
+    from cobs_tpu_torch.cli.main import main as cli_main
+    from cobs_tpu_torch.construct.device import build_batch_matrix_device
     from cobs_tpu_torch.experiments import dma_gather_bench as bench
     from cobs_tpu_torch.experiments import gather_count_bench as gc_bench
     from cobs_tpu_torch.ops import _build
+    from cobs_tpu_torch.ops import construct_scatter as cs
     from cobs_tpu_torch.ops import device_hash as dh
     from cobs_tpu_torch.ops import dma_gather as dg
     from cobs_tpu_torch.ops import query_kernel as qk
@@ -907,6 +1255,11 @@ def main() -> int:
     streamed = phase_streamed(torch, qk, dh, engine, native, Search,
                               settings, card)
     err = max(err, streamed["err"])
+    torch.cuda.empty_cache()
+
+    phase_construct_edges(torch, cs, build_batch_matrix_device)
+    phase_construct_golden(torch, cs, cli_main)
+    con = phase_construct(torch, cs, card)
 
     entries = {
         "gather_and_count": dict(
@@ -923,6 +1276,7 @@ def main() -> int:
             launches=k2_launches, max_abs_err=0, ms=k2["ms"],
             plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
             bound_by="bytes", library_ms=k2["library_ms"]),
+        "construct_scatter": dict(max_abs_err=0, library_ms=None, **con),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],

@@ -1,4 +1,4 @@
-"""Classic index file format (.cobs_classic): header read and write.
+"""Classic index file format (.cobs_classic): read and write.
 
 Byte-compatible with the reference (reference:
 cobs/file/classic_index_header.{hpp,cpp}). Layout:
@@ -21,11 +21,15 @@ the device matrix.
 import dataclasses
 import io
 import struct
+from pathlib import Path
+
+import numpy as np
 
 from cobs_tpu_torch.fmt import magic
 
 MAGIC = b"CLASSIC_INDEX"
 VERSION = 1
+FILE_EXTENSION = ".cobs_classic"
 
 
 @dataclasses.dataclass
@@ -35,6 +39,10 @@ class ClassicIndexHeader:
     signature_size: int = 0
     num_hashes: int = 0
     file_names: list[str] = dataclasses.field(default_factory=list)
+
+    @property
+    def row_bits(self) -> int:
+        return len(self.file_names)
 
     @property
     def row_size(self) -> int:
@@ -59,6 +67,37 @@ class ClassicIndexHeader:
         return cls(term_size=term_size, canonicalize=canonicalize,
                    signature_size=sig, num_hashes=num_hashes,
                    file_names=names)
+
+
+def write_classic_index(path, header: ClassicIndexHeader,
+                        data: np.ndarray) -> None:
+    """Write header + payload. data: uint8 [signature_size, row_size] or
+    flat bytes."""
+    path = Path(path)
+    if path.parent != Path(""):
+        path.parent.mkdir(parents=True, exist_ok=True)
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    with open(path, "wb") as f:
+        header.serialize(f)
+        data.tofile(f)  # no second in-memory copy of a large payload
+
+
+def read_classic_header(path) -> ClassicIndexHeader:
+    with open(path, "rb") as f:
+        return ClassicIndexHeader.deserialize(f)
+
+
+def read_classic_index(path) -> tuple[ClassicIndexHeader, np.ndarray]:
+    """Read header and payload matrix uint8 [signature_size, row_size]."""
+    with open(path, "rb") as f:
+        h = ClassicIndexHeader.deserialize(f)
+        payload = f.read()
+    data = np.frombuffer(payload, dtype=np.uint8)
+    if h.signature_size * h.row_size != data.size:
+        raise magic.FileIOError(
+            f"classic index payload size mismatch: expected "
+            f"{h.signature_size}x{h.row_size}, got {data.size}")
+    return h, data.reshape(h.signature_size, h.row_size)
 
 
 def is_classic_file(path) -> bool:

@@ -1,4 +1,4 @@
-"""Compact index file format (.cobs_compact): header read and page
+"""Compact index file format (.cobs_compact): read and write, and page
 coalescing arithmetic.
 
 Byte-compatible with the reference (reference:
@@ -22,11 +22,15 @@ import dataclasses
 import io
 import math
 import struct
+from pathlib import Path
+
+import numpy as np
 
 from cobs_tpu_torch.fmt import magic
 
 MAGIC = b"COMPACT_INDEX"
 VERSION = 1
+FILE_EXTENSION = ".cobs_compact"
 
 
 @dataclasses.dataclass
@@ -47,6 +51,18 @@ class CompactIndexHeader:
     def padding_size(self, pos: int) -> int:
         return (self.page_size
                 - ((pos + len(MAGIC)) % self.page_size)) % self.page_size
+
+    def serialize(self, os_: io.BufferedIOBase) -> None:
+        magic.write_magic_begin(os_, MAGIC, VERSION)
+        os_.write(struct.pack("<IBIIQ", self.term_size, self.canonicalize,
+                              len(self.parameters), len(self.file_names),
+                              self.page_size))
+        for p in self.parameters:
+            os_.write(struct.pack("<QQ", p.signature_size, p.num_hashes))
+        for name in self.file_names:
+            os_.write(name.encode("utf-8", errors="surrogateescape") + b"\n")
+        os_.write(b"\0" * self.padding_size(os_.tell()))
+        magic.write_magic_end(os_, MAGIC)
 
     @classmethod
     def deserialize(cls, is_: io.BufferedIOBase) -> "CompactIndexHeader":
@@ -70,6 +86,38 @@ def read_compact_header(path) -> tuple[CompactIndexHeader, int]:
     with open(path, "rb") as f:
         h = CompactIndexHeader.deserialize(f)
         return h, f.tell()
+
+
+def read_compact_index(path) -> tuple[CompactIndexHeader, list[np.ndarray]]:
+    """Read header and per-page payload matrices
+    uint8 [signature_size_i, page_size]."""
+    with open(path, "rb") as f:
+        h = CompactIndexHeader.deserialize(f)
+        pages = []
+        for p in h.parameters:
+            size = p.signature_size * h.page_size
+            raw = f.read(size)
+            if len(raw) != size:
+                raise magic.FileIOError("compact index payload truncated")
+            pages.append(np.frombuffer(raw, dtype=np.uint8).reshape(
+                p.signature_size, h.page_size))
+    return h, pages
+
+
+def write_compact_index(path, header: CompactIndexHeader,
+                        pages: list[np.ndarray]) -> None:
+    path = Path(path)
+    if path.parent != Path(""):
+        path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        header.serialize(f)
+        for p, page in zip(header.parameters, pages):
+            page = np.ascontiguousarray(page, dtype=np.uint8)
+            if page.shape != (p.signature_size, header.page_size):
+                raise ValueError(
+                    f"page of shape {page.shape}, header says "
+                    f"{(p.signature_size, header.page_size)}")
+            page.tofile(f)
 
 
 def is_compact_file(path) -> bool:

@@ -65,3 +65,12 @@ def read_line(is_: io.BufferedIOBase) -> str:
             return out.decode("utf-8", errors="surrogateescape")
         out += c
 
+
+def read_cstring(is_: io.BufferedIOBase) -> str:
+    """Read a NUL-terminated string."""
+    out = bytearray()
+    while True:
+        c = is_.read(1)
+        if not c or c == b"\0":
+            return out.decode("utf-8", errors="surrogateescape")
+        out += c

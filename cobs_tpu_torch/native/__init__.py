@@ -1,11 +1,15 @@
-"""Host C++ runtime of the streamed backend, built with g++ at first use
-and bound with ctypes.
+"""Host C++ runtime of the port, built with g++ at first use and bound
+with ctypes.
 
-`native.cpp` holds the port's own copy of three parts of
-cobs_tpu/native/native.cpp (the port never imports cobs_tpu): the
-threaded scattered row copy (`gather_rows`), the host gather/AND/
-expand-add scorer (`score_batch_host`) and the io_uring row gather of
-cold-cache serving (`gather_rows_file`, `uring_supported`,
+`native.cpp` holds the port's own copy of cobs_tpu/native/native.cpp's
+construction and query-path entry points (the port never imports
+cobs_tpu): batched XXH64 (`xxh64_batch`), the fused canonicalize + hash +
+mod of construction (`window_rows`, which takes the sequence path for
+sliding-window views, `window_hashes`), the random-document rows of
+`classic_construct_random` (`random_rows`), the host bit scatter
+(`set_bits`), the threaded scattered row copy (`gather_rows`), the host
+gather/AND/expand-add scorer (`score_batch_host`) and the io_uring row
+gather of cold-cache serving (`gather_rows_file`, `uring_supported`,
 `dontcache_supported`). The
 first call of any of them compiles the source into
 `cobs_tpu_torch/_build/` (listed in `.gitignore`), named by a hash of
@@ -86,8 +90,7 @@ def _build() -> Path:
             return so
         tmp.unlink(missing_ok=True)
         errors.append(f"{' '.join(cmd)}:\n{proc.stderr.strip()}")
-    raise RuntimeError("building the streamed backend's host library "
-                       "failed:\n" + "\n".join(errors))
+    raise RuntimeError("building the port's host library failed:\n" + "\n".join(errors))
 
 
 def lib() -> ctypes.CDLL:
@@ -98,6 +101,21 @@ def lib() -> ctypes.CDLL:
         if _lib is None:
             L = ctypes.CDLL(str(_build()))
             p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+            u64 = ctypes.c_uint64
+            L.cobs_xxh64_batch.argtypes = [p, i64, i64, u64, p]
+            L.cobs_xxh64_batch.restype = None
+            for fn in (L.cobs_sequence_rows_mt, L.cobs_window_rows_mt):
+                fn.argtypes = [p, i64, i64, i64, u64, i32, p, i32]
+                fn.restype = i32
+            for fn in (L.cobs_sequence_rows, L.cobs_window_rows):
+                fn.argtypes = [p, i64, i64, i64, u64, i32, p]
+                fn.restype = i32
+            L.cobs_window_hashes.argtypes = [p, i64, i64, i64, i32, p]
+            L.cobs_window_hashes.restype = i32
+            L.cobs_random_rows.argtypes = [u64, i64, i64, i64, u64, p]
+            L.cobs_random_rows.restype = i32
+            L.cobs_set_bits.argtypes = [p, i64, p, i64, i64]
+            L.cobs_set_bits.restype = None
             L.cobs_gather_rows.argtypes = [p, i64, p, i64, p, i64, i32]
             L.cobs_gather_rows.restype = None
             L.cobs_score_batch.argtypes = [p, i64, p, i64, i64, i64, i64,
@@ -108,6 +126,106 @@ def lib() -> ctypes.CDLL:
             L.cobs_gather_rows_file.restype = i32
             _lib = L
         return _lib
+
+
+def xxh64_batch(data, seed: int) -> np.ndarray:
+    """XXH64 of each row of data uint8 [n, len] with one seed -> u64 [n]
+    (`cobs_xxh64_batch`)."""
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    if data.ndim != 2:
+        raise ValueError(f"data must be [n, len], got {data.shape}")
+    out = np.empty(data.shape[0], dtype=np.uint64)
+    lib().cobs_xxh64_batch(data.ctypes.data, data.shape[0], data.shape[1],
+                           seed & (2**64 - 1), out.ctypes.data)
+    return out
+
+
+def _windows(windows) -> np.ndarray:
+    windows = np.asarray(windows, dtype=np.uint8)
+    if windows.ndim != 2 or windows.shape[1] < 1:
+        raise ValueError(f"windows must be uint8 [n, k >= 1], got "
+                         f"{windows.shape}")
+    return windows
+
+
+def _canonical(canonical: int) -> int:
+    if canonical not in (0, 1):
+        raise ValueError(f"unknown canonicalize value {canonical}")
+    return canonical
+
+
+def window_rows(windows, num_hashes: int, sig_size: int, canonical: int,
+                threads: int = 1) -> tuple[np.ndarray, bool]:
+    """Canonicalize (canonical=1) + XXH64 with seeds 0..num_hashes-1 +
+    mod sig_size over windows uint8 [n, k] on `threads` threads.
+
+    Returns (rows u64 [n * num_hashes], term-major; all_good), all_good
+    False when a term held a letter other than ACGT. Sliding-window views
+    (strides (1, 1), as ingest.util.sliding_windows makes them) hand the
+    underlying sequence to `cobs_sequence_rows_mt` without materializing
+    the [n, k] matrix; other arrays go to `cobs_window_rows_mt`."""
+    windows = _windows(windows)
+    canonical = _canonical(canonical)
+    if sig_size < 1:
+        raise ValueError(f"signature size must be >= 1, got {sig_size}")
+    n, k = windows.shape
+    out = np.empty(n * num_hashes, dtype=np.uint64)
+    if n == 0:
+        return out, True
+    threads = max(1, int(threads))
+    if windows.strides == (1, 1):
+        good = lib().cobs_sequence_rows_mt(
+            windows.ctypes.data, n + k - 1, k, num_hashes, sig_size,
+            canonical, out.ctypes.data, threads)
+    else:
+        windows = np.ascontiguousarray(windows)
+        good = lib().cobs_window_rows_mt(
+            windows.ctypes.data, n, k, num_hashes, sig_size, canonical,
+            out.ctypes.data, threads)
+    return out, bool(good)
+
+
+def window_hashes(windows, num_hashes: int,
+                  canonical: int) -> tuple[np.ndarray, bool]:
+    """Canonicalize + XXH64, not modded: (u64 [n, num_hashes], all_good)
+    (`cobs_window_hashes`)."""
+    windows = np.ascontiguousarray(_windows(windows))
+    n, k = windows.shape
+    out = np.empty((n, num_hashes), dtype=np.uint64)
+    good = lib().cobs_window_hashes(windows.ctypes.data, n, k, num_hashes,
+                                    _canonical(canonical), out.ctypes.data)
+    return out, bool(good)
+
+
+def random_rows(seed: int, n: int, k: int, num_hashes: int,
+                sig_size: int) -> np.ndarray:
+    """Rows of n random canonical k-mers (a splitmix64 stream from
+    `seed`, one draw per term, so 1 <= k <= 32), hashed and modded:
+    u64 [n * num_hashes] (`cobs_random_rows`)."""
+    if not 1 <= k <= 32:
+        raise ValueError(f"random_rows needs 1 <= k <= 32, got {k}")
+    out = np.empty(n * num_hashes, dtype=np.uint64)
+    lib().cobs_random_rows(seed & (2**64 - 1), n, k, num_hashes, sig_size,
+                           out.ctypes.data)
+    return out
+
+
+def set_bits(data, rows, doc_index: int) -> None:
+    """OR document `doc_index`'s bit (LSB first) into the given rows of
+    data uint8 [signature_size, row_size], in place (`cobs_set_bits`)."""
+    if (not isinstance(data, np.ndarray) or data.dtype != np.uint8
+            or data.ndim != 2 or not data.flags.c_contiguous
+            or not data.flags.writeable):
+        raise ValueError("data must be a writeable C-contiguous uint8 "
+                         "[rows, row_size] array")
+    if not 0 <= doc_index < 8 * data.shape[1]:
+        raise ValueError(f"document {doc_index} outside a row of "
+                         f"{data.shape[1]} bytes")
+    rows = np.ascontiguousarray(rows, dtype=np.uint64).reshape(-1)
+    if rows.size and int(rows.max()) >= data.shape[0]:
+        raise ValueError(f"row ids outside [0, {data.shape[0]})")
+    lib().cobs_set_bits(data.ctypes.data, data.shape[1], rows.ctypes.data,
+                        rows.size, doc_index)
 
 
 def _payload(base, row_bytes: int) -> np.ndarray:

@@ -1,12 +1,13 @@
-// Host runtime of the streamed (host-mmap) backend of cobs_tpu_torch:
-// the threaded scattered row gather, the host gather/AND/expand-add
-// scorer, and the io_uring row gather of cold-cache serving.
+// Host runtime of cobs_tpu_torch: the construction and hashing hot path
+// (canonicalization -> XXH64 -> Bloom row ids, the host bit scatter, the
+// random-document generator), and the streamed (host-mmap) backend's
+// threaded scattered row gather, host gather/AND/expand-add scorer and
+// io_uring row gather of cold-cache serving.
 //
-// A copy of those three parts of cobs_tpu/native/native.cpp (the port
-// never imports cobs_tpu, whose package imports jax); the hashing and
-// construction entry points there are not part of the query path this
-// library serves. Exposed as a flat C ABI bound with ctypes, which
-// releases the GIL for the length of every call.
+// A copy of those parts of cobs_tpu/native/native.cpp (the port never
+// imports cobs_tpu, whose package imports jax), so both packages hash,
+// scatter and score bit for bit alike. Exposed as a flat C ABI bound with
+// ctypes, which releases the GIL for the length of every call.
 //
 // Build: cobs_tpu_torch/native/__init__.py compiles this with g++ at
 // first use into cobs_tpu_torch/_build/.
@@ -19,6 +20,456 @@
 #if defined(__AVX512BW__) || defined(__AVX2__)
 #include <immintrin.h>
 #endif
+
+namespace {
+
+constexpr uint64_t P1 = 0x9E3779B185EBCA87ULL;
+constexpr uint64_t P2 = 0xC2B2AE3D27D4EB4FULL;
+constexpr uint64_t P3 = 0x165667B19E3779F9ULL;
+constexpr uint64_t P4 = 0x85EBCA77C2B2AE63ULL;
+constexpr uint64_t P5 = 0x27D4EB2F165667C5ULL;
+
+inline uint64_t rotl(uint64_t x, int r) {
+    return (x << r) | (x >> (64 - r));
+}
+
+inline uint64_t read64(const uint8_t* p) {
+    uint64_t v;
+    std::memcpy(&v, p, 8);
+    return v;  // little-endian hosts only (x86-64 / aarch64)
+}
+
+inline uint32_t read32(const uint8_t* p) {
+    uint32_t v;
+    std::memcpy(&v, p, 4);
+    return v;
+}
+
+inline uint64_t xxh_round(uint64_t acc, uint64_t lane) {
+    return rotl(acc + lane * P2, 31) * P1;
+}
+
+inline uint64_t merge_round(uint64_t h, uint64_t acc) {
+    h ^= xxh_round(0, acc);
+    return h * P1 + P4;
+}
+
+uint64_t xxh64(const uint8_t* data, size_t len, uint64_t seed) {
+    const uint8_t* p = data;
+    const uint8_t* end = data + len;
+    uint64_t h;
+    if (len >= 32) {
+        uint64_t v1 = seed + P1 + P2;
+        uint64_t v2 = seed + P2;
+        uint64_t v3 = seed;
+        uint64_t v4 = seed - P1;
+        do {
+            v1 = xxh_round(v1, read64(p)); p += 8;
+            v2 = xxh_round(v2, read64(p)); p += 8;
+            v3 = xxh_round(v3, read64(p)); p += 8;
+            v4 = xxh_round(v4, read64(p)); p += 8;
+        } while (p + 32 <= end);
+        h = rotl(v1, 1) + rotl(v2, 7) + rotl(v3, 12) + rotl(v4, 18);
+        h = merge_round(h, v1);
+        h = merge_round(h, v2);
+        h = merge_round(h, v3);
+        h = merge_round(h, v4);
+    } else {
+        h = seed + P5;
+    }
+    h += static_cast<uint64_t>(len);
+    while (p + 8 <= end) {
+        h ^= xxh_round(0, read64(p));
+        h = rotl(h, 27) * P1 + P4;
+        p += 8;
+    }
+    if (p + 4 <= end) {
+        h ^= static_cast<uint64_t>(read32(p)) * P1;
+        h = rotl(h, 23) * P2 + P3;
+        p += 4;
+    }
+    while (p < end) {
+        h ^= static_cast<uint64_t>(*p) * P5;
+        h = rotl(h, 11) * P1;
+        ++p;
+    }
+    h ^= h >> 33;
+    h *= P2;
+    h ^= h >> 29;
+    h *= P3;
+    h ^= h >> 32;
+    return h;
+}
+
+struct Maps {
+    uint8_t fwd[256];
+    uint8_t rev[256];
+    Maps() {
+        std::memset(fwd, 0, sizeof(fwd));
+        std::memset(rev, 0, sizeof(rev));
+        fwd['A'] = 'A'; fwd['C'] = 'C'; fwd['G'] = 'G'; fwd['T'] = 'T';
+        rev['A'] = 'T'; rev['C'] = 'G'; rev['G'] = 'C'; rev['T'] = 'A';
+    }
+};
+const Maps kMaps;
+
+// Canonicalize one k-mer into `out` (k bytes). Mirrors
+// core/canonical.py: compare forward vs reverse complement over the
+// first floor(k/2) positions only; forward wins ties. Returns 1 iff all
+// letters were ACGT.
+inline int canonicalize(const uint8_t* kmer, int64_t k, uint8_t* out) {
+    int good = 1;
+    int use_reverse = 0;
+    const int64_t half = k / 2;
+    for (int64_t i = 0; i < half; ++i) {
+        uint8_t f = kMaps.fwd[kmer[i]];
+        uint8_t r = kMaps.rev[kmer[k - 1 - i]];
+        if (f != r) {
+            use_reverse = f > r;
+            break;
+        }
+    }
+    if (use_reverse) {
+        for (int64_t i = 0; i < k; ++i) {
+            uint8_t r = kMaps.rev[kmer[k - 1 - i]];
+            out[i] = r;
+            good &= (kMaps.fwd[kmer[k - 1 - i]] != 0);
+        }
+    } else {
+        for (int64_t i = 0; i < k; ++i) {
+            uint8_t f = kMaps.fwd[kmer[i]];
+            out[i] = f;
+            good &= (f != 0);
+        }
+    }
+    return good;
+}
+
+// Vectorized canonicalization for k <= 64 (AVX-512BW + VBMI): the
+// scalar table-lookup loops above cost ~4x the XXH64 hash per term
+// (measured 56 vs 14 ns at k=31), so the whole operation — validate,
+// reverse (vpermb), complement (low-nibble pshufb: A/C/G/T have
+// distinct low nibbles), truncated-half compare — runs as ~15 vector
+// ops with bit-exact scalar semantics (invalid letters map to 0 and
+// participate in the comparison as 0, matching kMaps.fwd/rev).
+#if defined(__AVX512BW__) && defined(__AVX512VBMI__)
+#define COBS_CANON_SIMD 1
+struct CanonCtx {
+    __m512i rev_idx;
+    __m512i comp_tab;
+    __mmask64 kmask;
+    __mmask64 halfmask;
+    int64_t k;
+    explicit CanonCtx(int64_t k_) : k(k_) {
+        alignas(64) uint8_t idx[64] = {0};
+        for (int64_t i = 0; i < k_ && i < 64; ++i)
+            idx[i] = static_cast<uint8_t>(k_ - 1 - i);
+        rev_idx = _mm512_load_si512(idx);
+        // complement by low nibble: 'A'&15=1 -> 'T', 'C'&15=3 -> 'G',
+        // 'G'&15=7 -> 'C', 'T'&15=4 -> 'A'; other slots are zeroed by
+        // the validity mask regardless
+        alignas(16) static const uint8_t tab16[16] = {
+            0, 'T', 0, 'G', 'A', 0, 0, 'C', 0, 0, 0, 0, 0, 0, 0, 0};
+        comp_tab = _mm512_broadcast_i32x4(
+            _mm_load_si128(reinterpret_cast<const __m128i*>(tab16)));
+        kmask = k_ >= 64 ? ~0ULL : ((1ULL << k_) - 1);
+        halfmask = (k_ / 2) ? ((1ULL << (k_ / 2)) - 1) : 0;
+    }
+};
+
+inline __mmask64 valid_acgt(__m512i v) {
+    return _mm512_cmpeq_epi8_mask(v, _mm512_set1_epi8('A')) |
+           _mm512_cmpeq_epi8_mask(v, _mm512_set1_epi8('C')) |
+           _mm512_cmpeq_epi8_mask(v, _mm512_set1_epi8('G')) |
+           _mm512_cmpeq_epi8_mask(v, _mm512_set1_epi8('T'));
+}
+
+inline int canonicalize_simd(const CanonCtx& c, const uint8_t* kmer,
+                             uint8_t* out) {
+    __m512i v = _mm512_maskz_loadu_epi8(c.kmask, kmer);
+    __mmask64 valid = valid_acgt(v) & c.kmask;
+    __m512i f = _mm512_maskz_mov_epi8(valid, v);
+    __m512i rv = _mm512_permutexvar_epi8(c.rev_idx, v);
+    __mmask64 valid_r = valid_acgt(rv) & c.kmask;
+    __m512i r = _mm512_maskz_mov_epi8(
+        valid_r, _mm512_shuffle_epi8(
+                     c.comp_tab,
+                     _mm512_and_si512(rv, _mm512_set1_epi8(0x0F))));
+    __mmask64 ne = _mm512_cmpneq_epi8_mask(f, r) & c.halfmask;
+    int use_reverse = 0;
+    if (ne) {
+        int i = __builtin_ctzll(ne);
+        use_reverse = kMaps.fwd[kmer[i]] > kMaps.rev[kmer[c.k - 1 - i]];
+    }
+    _mm512_mask_storeu_epi8(out, c.kmask, use_reverse ? r : f);
+    return valid == c.kmask;
+}
+#else
+#define COBS_CANON_SIMD 0
+struct CanonCtx {
+    explicit CanonCtx(int64_t) {}
+};
+#endif
+
+// Canonicalize through the SIMD path when compiled in and k fits one
+// vector; scalar otherwise. `ctx` must have been built for this k.
+inline int canonicalize_ctx(const CanonCtx& ctx, const uint8_t* kmer,
+                            int64_t k, uint8_t* out) {
+#if COBS_CANON_SIMD
+    if (k <= 64) return canonicalize_simd(ctx, kmer, out);
+#else
+    (void)ctx;
+#endif
+    return canonicalize(kmer, k, out);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Batched XXH64 of n equal-length byte strings for one seed.
+void cobs_xxh64_batch(const uint8_t* data, int64_t n, int64_t len,
+                      uint64_t seed, uint64_t* out) {
+    for (int64_t i = 0; i < n; ++i)
+        out[i] = xxh64(data + i * len, static_cast<size_t>(len), seed);
+}
+
+// The fused construction/query hot path over one sequence: slide a
+// k-window, canonicalize (optional), hash num_hashes seeds, mod by
+// sig_size. out_rows: [n_terms * num_hashes] u64 (term-major). Returns
+// 0 if any term contained a non-ACGT letter, else 1. n_terms =
+// seq_len - k + 1 (caller guarantees >= 1).
+int32_t cobs_sequence_rows(const uint8_t* seq, int64_t seq_len, int64_t k,
+                           int64_t num_hashes, uint64_t sig_size,
+                           int32_t canonical, uint64_t* out_rows) {
+    int all_good = 1;
+    const int64_t n = seq_len - k + 1;
+    if (!canonical) {
+        for (int64_t t = 0; t < n; ++t)
+            for (int64_t j = 0; j < num_hashes; ++j)
+                out_rows[t * num_hashes + j] =
+                    xxh64(seq + t, static_cast<size_t>(k),
+                          static_cast<uint64_t>(j)) % sig_size;
+        return all_good;
+    }
+    // Sliding windows are substrings, so every window's canonical form
+    // is a contiguous slice of one of two precomputed buffers: the
+    // forward-mapped sequence cs (identity on ACGT, 0 on invalid —
+    // the same invalid-as-0 semantics as kMaps) and the
+    // reverse-complement-mapped sequence rcc (window t's reverse
+    // complement = rcc + (seq_len - t - k)). The per-window work drops
+    // to the truncated-half compare + in-place hash: no per-window
+    // canonicalize copy at all.
+    std::vector<uint8_t> cs(static_cast<size_t>(seq_len));
+    std::vector<uint8_t> rcc(static_cast<size_t>(seq_len));
+    for (int64_t i = 0; i < seq_len; ++i) {
+        cs[static_cast<size_t>(i)] = kMaps.fwd[seq[i]];
+        rcc[static_cast<size_t>(i)] = kMaps.rev[seq[seq_len - 1 - i]];
+    }
+    // sliding invalid-letter counter for the per-window `good` check
+    int64_t zeros = 0;
+    for (int64_t i = 0; i < k; ++i)
+        zeros += (cs[static_cast<size_t>(i)] == 0);
+    const int64_t half = k / 2;
+#if COBS_CANON_SIMD
+    const __mmask64 halfmask =
+        half >= 64 ? ~0ULL : (half > 0 ? ((1ULL << half) - 1) : 0ULL);
+#endif
+    for (int64_t t = 0; t < n; ++t) {
+        const uint8_t* f = cs.data() + t;
+        const uint8_t* r = rcc.data() + (seq_len - t - k);
+        int use_reverse = 0;
+#if COBS_CANON_SIMD
+        if (half <= 64) {
+            __mmask64 ne = _mm512_cmpneq_epi8_mask(
+                               _mm512_maskz_loadu_epi8(halfmask, f),
+                               _mm512_maskz_loadu_epi8(halfmask, r)) &
+                           halfmask;
+            if (ne) {
+                int i = __builtin_ctzll(ne);
+                use_reverse = f[i] > r[i];
+            }
+        } else
+#endif
+        {
+            for (int64_t i = 0; i < half; ++i) {
+                if (f[i] != r[i]) {
+                    use_reverse = f[i] > r[i];
+                    break;
+                }
+            }
+        }
+        const uint8_t* term = use_reverse ? r : f;
+        all_good &= (zeros == 0);
+        for (int64_t j = 0; j < num_hashes; ++j)
+            out_rows[t * num_hashes + j] =
+                xxh64(term, static_cast<size_t>(k),
+                      static_cast<uint64_t>(j)) % sig_size;
+        if (t + 1 < n)
+            zeros += (cs[static_cast<size_t>(t + k)] == 0) -
+                     (cs[static_cast<size_t>(t)] == 0);
+    }
+    return all_good;
+}
+
+// Multithreaded variant over one large sequence: thread t handles the
+// window range [lo, hi) directly on the shared sequence bytes (windows
+// overlap, reads only). Used by the streaming ingest path, where a
+// chunk is one contiguous sequence slice — no [n, k] window
+// materialization needed at all.
+int32_t cobs_sequence_rows_mt(const uint8_t* seq, int64_t seq_len,
+                              int64_t k, int64_t num_hashes,
+                              uint64_t sig_size, int32_t canonical,
+                              uint64_t* out_rows, int32_t num_threads) {
+    const int64_t n = seq_len - k + 1;
+    if (num_threads < 2 || n < 1 << 16)
+        return cobs_sequence_rows(seq, seq_len, k, num_hashes, sig_size,
+                                  canonical, out_rows);
+    std::vector<std::thread> pool;
+    std::vector<int> goods(num_threads, 1);
+    int64_t per = (n + num_threads - 1) / num_threads;
+    for (int32_t t = 0; t < num_threads; ++t) {
+        int64_t lo = t * per, hi = lo + per < n ? lo + per : n;
+        if (lo >= hi) break;
+        pool.emplace_back([=, &goods] {
+            goods[t] = cobs_sequence_rows(
+                seq + lo, (hi - lo) + k - 1, k, num_hashes, sig_size,
+                canonical, out_rows + lo * num_hashes);
+        });
+    }
+    int all_good = 1;
+    for (auto& th : pool) th.join();
+    for (int g : goods) all_good &= g;
+    return all_good;
+}
+
+namespace {
+
+int window_rows_range(const uint8_t* windows, int64_t lo, int64_t hi,
+                      int64_t k, int64_t num_hashes, uint64_t sig_size,
+                      int32_t canonical, uint64_t* out_rows) {
+    int all_good = 1;
+    std::vector<uint8_t> buf(canonical ? static_cast<size_t>(k) : 0);
+    const CanonCtx ctx(k);
+    for (int64_t t = lo; t < hi; ++t) {
+        const uint8_t* term = windows + t * k;
+        if (canonical) {
+            all_good &= canonicalize_ctx(ctx, term, k, buf.data());
+            term = buf.data();
+        }
+        for (int64_t j = 0; j < num_hashes; ++j)
+            out_rows[t * num_hashes + j] =
+                xxh64(term, static_cast<size_t>(k),
+                      static_cast<uint64_t>(j)) % sig_size;
+    }
+    return all_good;
+}
+
+}  // namespace
+
+// Same hot path over pre-extracted windows [n, k] (row-major) — the
+// drop-in native replacement for canonicalize_batch + xxh64_multi_seed.
+int32_t cobs_window_rows(const uint8_t* windows, int64_t n, int64_t k,
+                         int64_t num_hashes, uint64_t sig_size,
+                         int32_t canonical, uint64_t* out_rows) {
+    return window_rows_range(windows, 0, n, k, num_hashes, sig_size,
+                             canonical, out_rows);
+}
+
+// Multithreaded variant for very large window batches (single huge
+// documents; the Python layer parallelizes across documents, this
+// parallelizes within one).
+int32_t cobs_window_rows_mt(const uint8_t* windows, int64_t n, int64_t k,
+                            int64_t num_hashes, uint64_t sig_size,
+                            int32_t canonical, uint64_t* out_rows,
+                            int32_t num_threads) {
+    if (num_threads < 2 || n < 1 << 16)
+        return window_rows_range(windows, 0, n, k, num_hashes, sig_size,
+                                 canonical, out_rows);
+    std::vector<std::thread> pool;
+    std::vector<int> goods(num_threads, 1);
+    int64_t per = (n + num_threads - 1) / num_threads;
+    for (int32_t t = 0; t < num_threads; ++t) {
+        int64_t lo = t * per, hi = lo + per < n ? lo + per : n;
+        if (lo >= hi) break;
+        pool.emplace_back([=, &goods] {
+            goods[t] = window_rows_range(windows, lo, hi, k, num_hashes,
+                                         sig_size, canonical, out_rows);
+        });
+    }
+    int all_good = 1;
+    for (auto& th : pool) th.join();
+    for (int g : goods) all_good &= g;
+    return all_good;
+}
+
+// Fused synthetic-document hot path for classic_construct_random
+// (reference analog: cobs/construction/classic_index random driver,
+// src/cobs.cpp:243-291): generate n random k-mers, canonicalize, hash
+// num_hashes seeds, mod by sig_size — no Python-side k-mer decode or
+// window materialization. PRNG: splitmix64 over (seed + term index),
+// 2 bits per letter, so one 64-bit draw covers k <= 32 and the stream
+// is reproducible from the seed alone (documented deviation from the
+// reference's std::mt19937: statistically, not bitwise, equivalent).
+int32_t cobs_random_rows(uint64_t seed, int64_t n, int64_t k,
+                         int64_t num_hashes, uint64_t sig_size,
+                         uint64_t* out_rows) {
+    if (k < 1 || k > 32) return 0;  // one draw per term; plenty for DNA
+    static const uint8_t kLetters[4] = {'A', 'C', 'G', 'T'};
+    std::vector<uint8_t> kmer(static_cast<size_t>(k));
+    std::vector<uint8_t> canon(static_cast<size_t>(k));
+    const CanonCtx ctx(k);
+    for (int64_t t = 0; t < n; ++t) {
+        // splitmix64 finalizer (public domain algorithm)
+        uint64_t z = seed + static_cast<uint64_t>(t) *
+                     0x9E3779B97F4A7C15ULL + 0x9E3779B97F4A7C15ULL;
+        z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9ULL;
+        z = (z ^ (z >> 27)) * 0x94D049BB133111EBULL;
+        z ^= z >> 31;
+        for (int64_t i = 0; i < k; ++i)
+            kmer[static_cast<size_t>(i)] = kLetters[(z >> (2 * i)) & 3];
+        canonicalize_ctx(ctx, kmer.data(), k, canon.data());
+        for (int64_t j = 0; j < num_hashes; ++j)
+            out_rows[t * num_hashes + j] =
+                xxh64(canon.data(), static_cast<size_t>(k),
+                      static_cast<uint64_t>(j)) % sig_size;
+    }
+    return 1;
+}
+
+// Raw (un-modded) hashes for the query path (hashes are modded per page
+// for compact indices): out [n * num_hashes] u64, term-major.
+int32_t cobs_window_hashes(const uint8_t* windows, int64_t n, int64_t k,
+                           int64_t num_hashes, int32_t canonical,
+                           uint64_t* out) {
+    int all_good = 1;
+    std::vector<uint8_t> buf(canonical ? static_cast<size_t>(k) : 0);
+    const CanonCtx ctx(k);
+    for (int64_t t = 0; t < n; ++t) {
+        const uint8_t* term = windows + t * k;
+        if (canonical) {
+            all_good &= canonicalize_ctx(ctx, term, k, buf.data());
+            term = buf.data();
+        }
+        for (int64_t j = 0; j < num_hashes; ++j)
+            out[t * num_hashes + j] =
+                xxh64(term, static_cast<size_t>(k),
+                      static_cast<uint64_t>(j));
+    }
+    return all_good;
+}
+
+// OR document doc's bit into the byte matrix rows (LSB-first bit
+// layout, reference: cobs/construction/classic_index.cpp:40-43).
+void cobs_set_bits(uint8_t* data, int64_t row_size, const uint64_t* rows,
+                   int64_t n, int64_t doc) {
+    const uint8_t bit = static_cast<uint8_t>(1u << (doc & 7));
+    uint8_t* col = data + (doc >> 3);
+    for (int64_t i = 0; i < n; ++i)
+        col[rows[i] * row_size] |= bit;
+}
+
+}  // extern "C"
 
 extern "C" {
 

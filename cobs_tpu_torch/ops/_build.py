@@ -24,7 +24,8 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
 #: every CUDA source of the port (csrc/<name>.cu)
-SOURCES = ("gather_count", "device_hash", "dma_gather")
+SOURCES = ("gather_count", "device_hash", "dma_gather",
+           "construct_scatter")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -266,52 +266,23 @@ class DeviceIndex(_PageLayout):
                     "compact index with non-uniform num_hashes unsupported")
         sig_sizes = [p.signature_size for p in h.parameters]
         page_size = h.page_size
-        # pages with equal Bloom sizes probe the same row per hash, so
-        # they merge COLUMN-wise into one wider page bit-exactly
-        # (fmt_compact.coalesce_factor): one gather per term instead of
-        # one per page. The same environment switches as cobs_tpu's
-        # loader: COBS_TPU_COALESCE_PAGES=0 turns merging off,
-        # COBS_TPU_RUN_CAP caps merged runs (unset/auto = cost model,
-        # 0 = uncapped, N = forced cap).
-        coalesce = os.environ.get("COBS_TPU_COALESCE_PAGES", "1") != "0"
-        m = fmt_compact.coalesce_factor(sig_sizes) if coalesce else 1
+        runs = _compact_runs(sig_sizes, page_size)
         page_docs = None
-        if m > 1:
-            matrix, sig_sizes = _load_matrix_coalesced(
-                path, off, sig_sizes, page_size, dev,
-                [(i, m) for i in range(0, len(sig_sizes), m)])
-            page_size *= m
-            W = matrix.shape[1]
+        if runs is None:
+            W = _pad_words(-(-page_size // 4))
+            matrix = _load_matrix_striped(path, off, int(sum(sig_sizes)),
+                                          page_size, W, dev)
         else:
-            runs = (fmt_compact.coalesce_runs(sig_sizes)
-                    if coalesce else [])
-            if any(n > 1 for _, n in runs):
-                cap_env = os.environ.get("COBS_TPU_RUN_CAP", "")
-                if cap_env in ("", "auto"):
-                    cap = _best_run_cap(runs, page_size)
-                else:
-                    cap = int(cap_env)
-                    if cap < 0:
-                        raise ValueError(f"COBS_TPU_RUN_CAP must be >= 0 "
-                                         f"(0 = uncapped), got {cap}")
-                    cap = cap or max(n for _, n in runs)
-                runs = _split_runs(runs, cap)
-            if any(n > 1 for _, n in runs) and _runs_worthwhile(
-                    runs, sig_sizes, page_size):
-                # equal-Bloom RUNS merge column-wise bit-exactly; merged
-                # pages span variable numbers of original pages, tracked
-                # by per-page doc counts (DocLayout)
-                matrix, sig_sizes = _load_matrix_coalesced(
-                    path, off, sig_sizes, page_size, dev, runs)
+            if fmt_compact.coalesce_factor(sig_sizes) == 1:
+                # equal-Bloom runs: merged pages span variable numbers of
+                # original pages, tracked by per-page doc counts
+                # (DocLayout)
                 page_docs = np.asarray(
                     [8 * page_size * n for _, n in runs], dtype=np.int64)
-                page_size *= max(n for _, n in runs)
-                W = matrix.shape[1]
-            else:
-                W = _pad_words(-(-page_size // 4))
-                matrix = _load_matrix_striped(path, off,
-                                              int(sum(sig_sizes)),
-                                              page_size, W, dev)
+            matrix, sig_sizes = _load_matrix_coalesced(
+                path, off, sig_sizes, page_size, dev, runs)
+            page_size *= max(n for _, n in runs)
+            W = matrix.shape[1]
         offsets = np.zeros(len(sig_sizes), dtype=np.int64)
         np.cumsum(sig_sizes[:-1], out=offsets[1:])
         return cls(matrix=matrix, row_offsets=offsets,
@@ -366,6 +337,63 @@ def _load_matrix_striped(path, payload_off: int, total_rows: int,
             buf[r:r + n].copy_(torch.from_numpy(words.view(np.int32)))
             r += n
     return buf
+
+
+def _compact_runs(sig_sizes, page_size: int):
+    """How DeviceIndex lays out a compact index's pages: None keeps one
+    padded row per page, else [(start, length), ...] runs of pages merged
+    column-wise into wider rows.
+
+    Pages with equal Bloom sizes probe the same row per hash, so they
+    merge column-wise bit-exactly (fmt_compact.coalesce_factor): one
+    gather per term instead of one per page. The same environment
+    switches as cobs_tpu's loader: COBS_TPU_COALESCE_PAGES=0 turns merging
+    off, COBS_TPU_RUN_CAP caps merged runs (unset/auto = cost model, 0 =
+    uncapped, N = forced cap)."""
+    if os.environ.get("COBS_TPU_COALESCE_PAGES", "1") == "0":
+        return None
+    m = fmt_compact.coalesce_factor(sig_sizes)
+    if m > 1:
+        return [(i, m) for i in range(0, len(sig_sizes), m)]
+    runs = fmt_compact.coalesce_runs(sig_sizes)
+    if not any(n > 1 for _, n in runs):
+        return None
+    cap_env = os.environ.get("COBS_TPU_RUN_CAP", "")
+    if cap_env in ("", "auto"):
+        cap = _best_run_cap(runs, page_size)
+    else:
+        cap = int(cap_env)
+        if cap < 0:
+            raise ValueError(f"COBS_TPU_RUN_CAP must be >= 0 "
+                             f"(0 = uncapped), got {cap}")
+        cap = cap or max(n for _, n in runs)
+    runs = _split_runs(runs, cap)
+    if any(n > 1 for _, n in runs) and _runs_worthwhile(
+            runs, sig_sizes, page_size):
+        return runs
+    return None
+
+
+def device_index_bytes(path) -> int:
+    """Bytes that DeviceIndex.from_file(path) holds on the device, from
+    the header alone: (rows + 1) x padded word width x 4, rows and width
+    after any page merging."""
+    if fmt_classic.is_classic_file(path):
+        h = fmt_classic.read_classic_header(path)
+        rows, W = h.signature_size, _pad_words(-(-h.row_size // 4))
+    elif fmt_compact.is_compact_file(path):
+        h, _ = fmt_compact.read_compact_header(path)
+        sig_sizes = [p.signature_size for p in h.parameters]
+        runs = _compact_runs(sig_sizes, h.page_size)
+        if runs is None:
+            rows, W = sum(sig_sizes), _pad_words(-(-h.page_size // 4))
+        else:
+            rows = sum(sig_sizes[s] for s, _ in runs)
+            W = _pad_words(-(-(h.page_size * max(n for _, n in runs))
+                             // 4))
+    else:
+        raise FileIOError(f'Could not open index path "{path}"')
+    return (rows + 1) * W * 4
 
 
 def _best_run_cap(runs, page_size: int) -> int:

@@ -23,7 +23,6 @@ import concurrent.futures
 import dataclasses
 import itertools
 import math
-import os
 
 import numpy as np
 
@@ -37,6 +36,7 @@ from cobs_tpu_torch.query.engine import (
     QueryBytes,
     StreamedIndex,
     create_hashes,
+    device_index_bytes,
     int32_row_ids,
     prepack_query_bytes,
     resolve_device,
@@ -65,7 +65,8 @@ def _open_index(path, device, streamed=None):
     """Open an index file for `device`. streamed=True serves it from a
     host mmap (StreamedIndex), False loads it onto the device
     (DeviceIndex, the reference's --load-complete), None picks: the
-    device unless the file is larger than
+    device unless the bytes it would hold there (rows padded to whole
+    word tiles, `device_index_bytes`) exceed
     settings.max_device_index_bytes (settings.load_complete_index
     forces the device)."""
     if streamed is None:
@@ -73,7 +74,7 @@ def _open_index(path, device, streamed=None):
             streamed = False
         else:
             try:
-                size = os.path.getsize(path)
+                size = device_index_bytes(path)
             except OSError:
                 raise FileIOError(
                     f'Could not open index path "{path}"') from None

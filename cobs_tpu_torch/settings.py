@@ -1,7 +1,8 @@
 """Global runtime settings of the PyTorch port.
 
 A subset of `cobs_tpu.settings` (reference: cobs/settings.hpp:16-23):
-the device that holds the index, the host worker threads, when an index
+the device that holds the index and runs construction's bit scatter, the
+host worker threads, whether document caches are written, when an index
 is streamed from host mmap instead of held on the device, where the
 streamed backend scores, and where query hashing runs. The TPU package's
 dispatch knobs (mega-dispatch, hash-ahead depth, dispatch groups, tier
@@ -16,9 +17,11 @@ import os
 class Settings:
     #! torch device that holds the index matrix and runs the kernels
     device: str = "cuda"
-    #! host worker threads (the streamed backend's row gather and host
-    #! scorer)
+    #! host worker threads (ingest, hashing and the host scatter of
+    #! construction; the streamed backend's row gather and host scorer)
     threads: int = os.cpu_count() or 1
+    #! disable reading and writing of `.cobs_cache` document caches
+    disable_cache: bool = False
     #! load every index file onto the device, whatever its size (the
     #! reference's --load-complete)
     load_complete_index: bool = False
@@ -47,3 +50,9 @@ class Settings:
 
 
 settings = Settings()
+
+
+def disable_cache(disable: bool = True) -> None:
+    """Disable reading and writing of document cache files
+    (`cobs_index.disable_cache()`, reference: python/module.cpp:389-394)."""
+    settings.disable_cache = disable

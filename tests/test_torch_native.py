@@ -1,10 +1,11 @@
-"""cobs_tpu_torch.native (the streamed backend's host C++ library) against
+"""cobs_tpu_torch.native (the port's host C++ library) against
 cobs_tpu.native and numpy oracles, on the CPU.
 
-The port compiles its own copy of the row gather, the host scorer and the
-io_uring gather (cobs_tpu_torch/native/native.cpp) into
-cobs_tpu_torch/_build/. Every output is an integer, so every comparison
-is exact. The JAX targets are tests/test_native.py:145-192 and
+The port compiles its own copy of the construction hashing entry points,
+the host bit scatter, the row gather, the host scorer and the io_uring
+gather (cobs_tpu_torch/native/native.cpp) into cobs_tpu_torch/_build/.
+Every output is an integer, so every comparison is exact. The JAX targets
+are tests/test_native.py, tests/test_streaming_ingest.py:102-160 and
 tests/test_streamed.py:135-174.
 """
 
@@ -195,3 +196,110 @@ print("ok")
         assert out.strip() == "ok"
     assert len(list(tmp_path.glob("*.so"))) == 1
     assert not list(tmp_path.glob("*.tmp"))
+
+
+def _dna(rng, n: int, invalid: bool = False) -> np.ndarray:
+    seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n)].copy()
+    if invalid:
+        seq[rng.integers(0, n, max(1, n // 500))] = ord("N")
+    return seq
+
+
+@pytest.fixture()
+def jax_lib():
+    """cobs_tpu's native library: its numpy fallback hashes differently
+    in classic_construct_random, so a comparison needs the library."""
+    assert jax_native.lib() is not None
+    return jax_native
+
+
+@pytest.mark.parametrize("k", [15, 31, 32, 33])
+@pytest.mark.parametrize("num_hashes", [1, 3])
+@pytest.mark.parametrize("canonical", [0, 1])
+@pytest.mark.parametrize("n,threads", [(500, 1), ((1 << 16) + 123, 4)])
+def test_window_rows_match_cobs_tpu(jax_lib, monkeypatch, k, num_hashes,
+                                    canonical, n, threads):
+    """Both routes of window_rows (a sliding-window view takes
+    cobs_sequence_rows_mt, a contiguous copy cobs_window_rows_mt), on one
+    thread and on four (n past the 2^16 threading floor), equal cobs_tpu's
+    and each other."""
+    from cobs_tpu.settings import settings as jax_settings
+    from cobs_tpu_torch.ingest.util import sliding_windows
+
+    monkeypatch.setattr(jax_settings, "threads", threads)
+    rng = np.random.default_rng(k * 7 + num_hashes + canonical)
+    seq = _dna(rng, n + k - 1, invalid=True)
+    view = sliding_windows(seq, k)
+    want, want_good = jax_lib.window_rows(view, num_hashes, 1000003,
+                                          canonical)
+    for windows in (view, np.ascontiguousarray(view)):
+        got, good = native.window_rows(windows, num_hashes, 1000003,
+                                       canonical, threads)
+        np.testing.assert_array_equal(got, want)
+        assert good == want_good
+    assert native.window_rows(view[:, :k], num_hashes, 7, canonical)[0] \
+        .max() < 7
+
+
+def test_window_rows_all_good_flag():
+    good_seq = np.frombuffer(b"ACGTTGCAACGT" * 5, np.uint8)
+    from cobs_tpu_torch.ingest.util import sliding_windows
+
+    assert native.window_rows(sliding_windows(good_seq, 31), 1, 99, 1)[1]
+    bad = good_seq.copy()
+    bad[40] = ord("N")
+    assert not native.window_rows(sliding_windows(bad, 31), 1, 99, 1)[1]
+    assert native.window_rows(np.empty((0, 31), np.uint8), 2, 99, 1)[0] \
+        .shape == (0,)
+    with pytest.raises(ValueError, match="canonicalize"):
+        native.window_rows(sliding_windows(good_seq, 31), 1, 99, 2)
+
+
+@pytest.mark.parametrize("canonical", [0, 1])
+def test_window_hashes_and_xxh64_batch_match_cobs_tpu(jax_lib, canonical):
+    rng = np.random.default_rng(11)
+    windows = _dna(rng, 31 * 300, invalid=True).reshape(300, 31)
+    got = native.window_hashes(windows, 3, canonical)
+    want = jax_lib.window_hashes(windows, 3, canonical)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1] == want[1]
+    lib = jax_lib.lib()
+    for seed in (0, 1, 2**63 + 5):
+        for length in (1, 7, 31, 64, 100):
+            data = rng.integers(0, 256, (50, length), dtype=np.uint8)
+            want = np.empty(50, dtype=np.uint64)
+            lib.cobs_xxh64_batch(jax_lib._ptr8(data), 50, length, seed,
+                                 jax_lib._ptr64(want))
+            np.testing.assert_array_equal(native.xxh64_batch(data, seed),
+                                          want)
+
+
+@pytest.mark.parametrize("k", [1, 15, 31, 32])
+def test_random_rows_match_cobs_tpu(jax_lib, k):
+    for seed in (0, 12345, 2**62 + 3):
+        np.testing.assert_array_equal(
+            native.random_rows(seed, 1000, k, 2, 4099),
+            jax_lib.random_rows(seed, 1000, k, 2, 4099))
+    with pytest.raises(ValueError, match="k <= 32"):
+        native.random_rows(0, 10, 33, 1, 99)
+
+
+def test_set_bits_matches_cobs_tpu_and_numpy(jax_lib):
+    rng = np.random.default_rng(3)
+    sig, row_size = 257, 5
+    got = np.zeros((sig, row_size), np.uint8)
+    want = np.zeros_like(got)
+    oracle = np.zeros_like(got)
+    for doc in range(8 * row_size):
+        rows = rng.integers(0, sig, 300).astype(np.uint64)
+        native.set_bits(got, rows, doc)
+        jax_lib.set_bits(want, rows, doc)
+        oracle[rows.astype(np.int64), doc >> 3] |= np.uint8(1 << (doc & 7))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, oracle)
+    with pytest.raises(ValueError, match="row ids outside"):
+        native.set_bits(got, np.array([sig], np.uint64), 0)
+    with pytest.raises(ValueError, match="outside a row"):
+        native.set_bits(got, np.array([0], np.uint64), 8 * row_size)
+    with pytest.raises(ValueError, match="writeable"):
+        native.set_bits(got[:, :2], np.array([0], np.uint64), 0)

@@ -147,16 +147,35 @@ def test_cmd_query_stdout_matches_cobs_tpu(capsys, tmp_path, args):
 
 
 def test_imports_and_answers_without_jax():
+    """Every module of the port imports with jax and cobs_tpu blocked, and
+    the port builds an index from the golden corpus and answers from it:
+    the card's machine has no JAX."""
     code = f"""
 import sys
 sys.modules["jax"] = None
 sys.modules["cobs_tpu"] = None
+import pkgutil, importlib, shutil, tempfile
+from pathlib import Path
 import cobs_tpu_torch
+for m in pkgutil.walk_packages(cobs_tpu_torch.__path__, "cobs_tpu_torch."):
+    importlib.import_module(m.name)
 from cobs_tpu_torch.cli.main import main
 from cobs_tpu_torch.ops import _build
+cobs_tpu_torch.disable_cache()
 s = cobs_tpu_torch.Search({str(GOLDEN["classic"])!r}, device="cpu")
 got = [(r.doc_name, r.score) for r in s.search({GOLDEN_QUERY!r}, 0.0)]
 assert got == {GOLDEN_LINES!r}, got
+tmp = Path(tempfile.mkdtemp())
+shutil.copytree({str(DATA / "fasta")!r}, tmp / "fasta",
+                ignore=shutil.ignore_patterns("*.cobs_cache"))
+for kind in ("classic", "compact"):
+    out = tmp / ("x.cobs_" + kind)
+    assert main([kind + "-construct", str(tmp / "fasta"), str(out),
+                 "--device", "cpu"]) == 0
+    s = cobs_tpu_torch.Search(str(out), device="cpu")
+    got = [(r.doc_name, r.score) for r in s.search({GOLDEN_QUERY!r}, 0.0)]
+    assert got == {GOLDEN_LINES!r}, got
+shutil.rmtree(tmp)
 assert not [m for m in sys.modules
             if m.startswith(("jax.", "jaxlib", "cobs_tpu."))]
 print("ok")
@@ -192,3 +211,36 @@ def test_index_over_device_budget_raises(monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Search(str(GOLDEN["compact"]))
+
+
+@pytest.mark.parametrize("kind", ["classic", "compact"])
+def test_device_budget_counts_device_bytes(monkeypatch, kind):
+    """The budget is held against the bytes the index takes on the device
+    (rows + 1 of 128-word padded rows: 4,479,488 B for the golden files),
+    not the file's size (8,864 B classic): a budget between the two opens
+    the file as a StreamedIndex, one of the device bytes loads it."""
+    from cobs_tpu_torch.query.engine import DeviceIndex, device_index_bytes
+
+    path = GOLDEN[kind]
+    need = device_index_bytes(path)
+    assert need == 4_479_488 > path.stat().st_size
+    ix = DeviceIndex.from_file(path, "cpu")
+    assert need == ix.matrix.numel() * 4
+    monkeypatch.setattr(settings, "max_device_index_bytes", need - 1)
+    s = Search(str(path), device="cpu")
+    assert isinstance(s.index_files[0], StreamedIndex)
+    assert [(r.doc_name, r.score)
+            for r in s.search(GOLDEN_QUERY, 0.0)] == GOLDEN_LINES
+    monkeypatch.setattr(settings, "max_device_index_bytes", need)
+    assert isinstance(Search(str(path), device="cpu").index_files[0],
+                      DeviceIndex)
+
+
+def test_cmd_query_threads_flag(monkeypatch, capsys):
+    """-T/--threads sets settings.threads, as cobs_tpu's does."""
+    monkeypatch.setattr(settings, "threads", 1)
+    assert torch_main(["query", "-i", str(GOLDEN["classic"]), "-t", "0",
+                       "-T", "3", "--device", "cpu", "--streamed",
+                       GOLDEN_QUERY]) == 0
+    assert settings.threads == 3
+    assert capsys.readouterr().out.splitlines()[0] == "sample1\t20"

@@ -417,11 +417,28 @@ def test_cmd_query_streamed_matches_cobs_tpu(capsys, kind, args):
     assert not settings.load_complete_index
 
 
-def test_cmd_query_streamed_and_load_complete_conflict(capsys):
-    assert torch_main(["query", "-i", str(GOLDEN["classic"]), "--streamed",
-                       "--load-complete", "--device", "cpu",
-                       GOLDEN_QUERY]) == -1
-    assert "at most one" in capsys.readouterr().err
+def test_cmd_query_streamed_and_load_complete_conflict(capsys,
+                                                      monkeypatch):
+    """--streamed wins over --load-complete, as in cobs_tpu
+    (cobs_tpu/cli/main.py:309-321): the same lines, from a streamed
+    index."""
+    monkeypatch.setattr(jax_settings, "load_complete_index", False)
+    base = ["query", "-i", str(GOLDEN["classic"]), "-t", "0", "--streamed",
+            "--load-complete", GOLDEN_QUERY]
+    assert jax_main(base) == 0
+    want = capsys.readouterr().out
+    opened = []
+    real_init = StreamedIndex.__init__
+
+    def spy(self, *args, **kwargs):
+        opened.append(args[0] if args else kwargs.get("path"))
+        real_init(self, *args, **kwargs)
+
+    monkeypatch.setattr(StreamedIndex, "__init__", spy)
+    assert torch_main(base + ["--device", "cpu"]) == 0
+    assert capsys.readouterr().out == want
+    assert opened == [str(GOLDEN["classic"])]
+    assert not settings.load_complete_index
 
 
 def test_streamed_runs_without_jax():
