@@ -4,8 +4,9 @@ CUDA card.
 
     python3 chip_smoke.py
 
-Builds the four CUDA kernels from the sources in this checkout (one nvcc
-per source, all started together), then runs these phases, each ending in
+Builds the four CUDA kernels from the sources in this checkout and the two
+control kernels of cobs_tpu_torch/experiments/csrc (one nvcc per source,
+all started together), then runs these phases, each ending in
 torch.cuda.synchronize():
 
 1. the gather-and-count kernel (K1) against its plain PyTorch version at
@@ -36,6 +37,12 @@ torch.cuda.synchronize():
 5. the hash kernel against its plain version, exact, at k in {7, 15, 31,
    32, 33, 64}, h in {1, 3}, P in {1, 3} with unequal signature sizes,
    canonicalize in {0 (random bytes), 1}, with variable query lengths;
+   at k in {31, 32, 33} with rows of 1,030-1,037 bytes (windows at every
+   byte offset mod 8, lengths not multiples of 4) at h=1, P=1 and h=3,
+   P=8; then timed at phase 3's shape and at the compact shape (h=3,
+   P=8 pages of unequal sizes) beside its control, the earlier
+   one-byte-at-a-time kernel (experiments/csrc/device_hash_control.cu),
+   with its bound;
 6. K2 (`dma_gather_rows`) against its plain version, exact and bit-equal
    on a second launch, at W in {1, 3, 384, 3136, 4100, 16384} (rows of
    up to eight 8 KB chunks on the bulk path) and N in {1, 17, 16384},
@@ -60,11 +67,13 @@ torch.cuda.synchronize():
    q/s, `Timer` phases, unique rows and bytes uploaded per batch, the
    pinned H2D rate, a cold run (io_uring with RWF_DONTCACHE where the
    machine allows it, said either way) and the card's busy share;
-10. construction: the bit scatter kernel against its plain version, bit
-   for bit and again on a second launch, at its edges (n = 0, D in {1, 7,
-   8, 31, 33, 1000}, every update to one row, rows 0 and R1 - 1,
-   duplicates, updates outside the matrix, n not a multiple of the block)
-   and the device build in many upload chunks against its CPU build; the
+10. construction: the bit scatter kernel against its plain version on
+   word-major words [Wc, R1], bit for bit and again on a second launch,
+   at its edges (n = 0, D in {1, 7, 8, 31, 33, 63, 1000, 1023}, every
+   update to one row, rows 0 and R1 - 1, duplicates, updates outside the
+   matrix, n not a multiple of the block, a chunk spanning two strips,
+   views off a 16-byte boundary, R1 = 2^24 + 1) and the device build in
+   many upload chunks against its CPU build; the
    CLI's classic-construct and compact-construct on a copy of
    tests/data/fasta == the golden files; then 1,000 FASTA documents of
    random ACGT from a seed, 250 kbp-1 Mbp (k=31, h=1, fpr 0.3,
@@ -72,7 +81,12 @@ torch.cuda.synchronize():
    the compact index built on the card (the kernel launched, count at 0
    just before each) and through the host scatter (not launched), files
    identical; the kernel alone at a full upload chunk against its plain
-   version and its bound; stage times and updates/s; 64 queries of 1,030
+   version and its bound, warm and with the L2 flushed before each
+   launch, and at R1 = 2^24 + 1, each beside its control (the earlier
+   row-major one-atomic-per-update kernel,
+   experiments/csrc/construct_scatter_control.cu); the
+   kernel's device time inside one more classic device build from a
+   profiler window; stage times and updates/s; 64 queries of 1,030
    bp cut from known documents on the device-built classic index: each
    source document scores all 1,000 terms, and the top 100 equal streamed
    host scoring's.
@@ -82,6 +96,7 @@ a JSON line of the kernels and, last, the device JSON line. Any failure
 raises and exits non-zero; so does a machine without a CUDA card.
 """
 
+import concurrent.futures
 import json
 import os
 import shutil
@@ -337,8 +352,8 @@ def phase_reference_scale(torch, qk, dh, engine, Search, settings,
     r = engine._rows_tensor(ix, hashes)
     qb = engine.QueryBytes([q.encode() for q in queries])
     qdata, qlens = engine._device_hash_args(ix, qb)
-    sig, off = ix.page_tables
-    hash_args = (qdata, qlens, 31, 1, 1, sig, off, ix.zero_row)
+    sig, off, mag = ix.page_tables
+    hash_args = (qdata, qlens, 31, 1, 1, sig, off, ix.zero_row, mag)
     dev_rows = dh.rows_from_queries(*hash_args)
     plain_rows = dh.rows_from_queries_reference(*hash_args)
     torch.cuda.synchronize()
@@ -434,35 +449,75 @@ def phase_reference_scale(torch, qk, dh, engine, Search, settings,
     return {"launches": launches, "err": err, "k1": k1, "hash": hk}
 
 
-def phase_hash_kernel(torch, dh, rng) -> int:
+def phase_hash_kernel(torch, dh, rng, card: str) -> dict:
+    """Phase 5: the hash kernel against its plain version, exact; then
+    its two timed shapes beside the control (the earlier one-byte-at-a-
+    time kernel, experiments/csrc/device_hash_control.cu)."""
+    from cobs_tpu_torch.experiments import redesign_bench as rb
+
     acgt = np.frombuffer(b"ACGT", np.uint8)
     cases = 0
+
+    def check(q, lens, k, h, canon, sigs, what):
+        nonlocal cases
+        qdata = torch.from_numpy(q).to(DEVICE)
+        qlens = torch.from_numpy(lens).to(DEVICE)
+        offs = tuple(int(x) for x in np.cumsum((0,) + sigs[:-1]))
+        args = (qdata, qlens, k, h, canon, sigs, offs, int(sum(sigs)))
+        got = dh.rows_from_queries(*args)
+        want = dh.rows_from_queries_reference(*args)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want),
+                f"hash kernel != plain at k={k} h={h} P={len(sigs)} "
+                f"canonicalize={canon} {what}: {max_err(got, want)}")
+        cases += 1
+
+    def batch(canon, B, L):
+        return (acgt[rng.integers(0, 4, size=(B, L))] if canon
+                else rng.integers(0, 256, size=(B, L)).astype(np.uint8))
+
     for k in (7, 15, 31, 32, 33, 64):
         lens = np.array([k, k + 1, 2 * k + 5, 300, 129 + k, 1030],
                         dtype=np.int32)   # lens[0] is a one-term query
         L = int(lens.max()) + 3
         for canon in (0, 1):
-            q = (acgt[rng.integers(0, 4, size=(len(lens), L))] if canon
-                 else rng.integers(0, 256, size=(len(lens), L))
-                 .astype(np.uint8))
-            qdata = torch.from_numpy(q).to(DEVICE)
-            qlens = torch.from_numpy(lens).to(DEVICE)
+            q = batch(canon, len(lens), L)
             for h in (1, 3):
                 for sigs in ((1 << 21,), (1009, 65537, 3)):
-                    offs = tuple(int(x) for x in
-                                 np.cumsum((0,) + sigs[:-1]))
-                    zero = int(sum(sigs))
-                    args = (qdata, qlens, k, h, canon, sigs, offs, zero)
-                    got = dh.rows_from_queries(*args)
-                    want = dh.rows_from_queries_reference(*args)
-                    torch.cuda.synchronize()
-                    require(torch.equal(got, want),
-                            f"hash kernel != plain at k={k} h={h} "
-                            f"P={len(sigs)} canonicalize={canon}: "
-                            f"{max_err(got, want)}")
-                    cases += 1
+                    check(q, lens, k, h, canon, sigs, "")
+    # rows of L = 1030..1037 bytes, so the queries' windows start at
+    # every byte offset mod 8 of device memory, with true lengths that
+    # are not multiples of 4; eight pages at h = 3 (the compact shape)
+    for k in (31, 32, 33):
+        for L in range(1030, 1038):
+            lens = np.array([L, L - 1, L - 2, L - 3, k, k + 5, 4 * k + 1],
+                            dtype=np.int32)
+            for canon in (0, 1):
+                q = batch(canon, len(lens), L)
+                for h, sigs in ((1, (1 << 21,)), (3, rb.COMPACT_SIGS)):
+                    check(q, lens, k, h, canon, sigs, f"L={L}")
     print(f"phase 5 hash kernel: kernel == plain at {cases} cases")
-    return 0
+
+    out = {}
+    for name, h, sigs in (("phase 3", 1, (1 << 21,)),
+                          ("compact", 3, rb.COMPACT_SIGS)):
+        B, L, k = 64, 1030, 31
+        T = L - k + 1
+        r = rb.time_hash(torch, dh, rb.hash_args(torch, dh, B, L, k, h,
+                                                 sigs, seed=51))
+        P = len(sigs)
+        # phase 3's count per term (3k + 40 + 15 + 2, chip_smoke phase
+        # 3), with 40 per further hash and 2 per further (hash, page)
+        ops = B * T * (3 * k + 40 * h + 15 + 2 * h * P)
+        r["bound_ms"], r["bound_by"] = bound(
+            B * L + B * 4 + B * T * h * P * 4 + 24 * P, ops)
+        out[name] = r
+        print(f"phase 5 hash kernel, {name} shape (B={B} L={L} k={k} h={h} "
+              f"P={P}, {card}): kernel {r['ms']:.4f} ms, control "
+              f"{r['control_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']}, {ops // (B * T)} operations per term; "
+              f"{100 * r['bound_ms'] / r['ms']:.1f} % of it)")
+    return out
 
 
 def phase_gather_small(torch, dg, rng) -> int:
@@ -719,8 +774,8 @@ def _phase_streamed(torch, qk, dh, engine, native, Search, settings, card,
     k1_err = max_err(qk.gather_and_count(gmat, inv, 1),
                      qk.gather_and_count_reference(gmat, inv, 1))
     qdata, qlens = engine._device_hash_args(st, engine.QueryBytes(qbytes))
-    sig, off = st.page_tables
-    hash_args = (qdata, qlens, 31, 1, 1, sig, off, st.zero_row)
+    sig, off, mag = st.page_tables
+    hash_args = (qdata, qlens, 31, 1, 1, sig, off, st.zero_row, mag)
     hash_ok = torch.equal(dh.rows_from_queries(*hash_args),
                           dh.rows_from_queries_reference(*hash_args))
     torch.cuda.synchronize()
@@ -894,17 +949,43 @@ def read_fasta_sequence(path: Path) -> bytes:
 
 def phase_construct_edges(torch, cs, device_build) -> None:
     """The bit scatter kernel against its plain version on the card, bit
-    for bit and again on a second launch: n = 0; D in {1, 7, 8, 31, 33,
-    1000}; every update to one row; rows 0 and R1 - 1; duplicates; updates
-    outside the matrix; n not a multiple of the block. Then the device
-    build of a few documents in chunks of 1,000 updates (many chunks
-    through the ring) against its CPU build. Returns the largest
-    """
+    for bit and again on a second launch, on word-major words [Wc, R1]:
+    n = 0; D in {1, 7, 8, 31, 33, 63, 1000, 1023} (63 and 1023 are
+    32 Wc - 1); every update to one row; rows 0 and R1 - 1; duplicates;
+    updates outside the matrix; n not a multiple of the block; a chunk
+    whose documents span two strips; R1 = 2^24 + 1 (a 64 MB strip); a
+    view that does not start on 16 bytes. Then the device build of a few
+    documents in chunks of 1,000 updates (many chunks through the ring)
+    against its CPU build."""
     cases = 0
-    for D in (1, 7, 8, 31, 33, 1000):
+
+    def check(R1, Wc, rows, docs, what):
+        """Each launch plan: the default, the one-pass kernel, and
+        binning with bins of 64 entries (most updates overflow them)."""
+        nonlocal cases
+        start = torch.randint(-2**31, 2**31 - 1, (Wc, R1),
+                              dtype=torch.int32, device=DEVICE)
+        want = cs.construct_scatter_reference(start.clone(), rows, docs)
+        n = rows.shape[0]
+        plans = [None, cs.ScatterPlan(False)]
+        if n:
+            slots, nblk = min(cs.MAX_SLOTS, Wc), -(-R1 // cs.ROW_BLOCK)
+            plans.append(cs.ScatterPlan(True, slots, nblk, 64))
+        for plan in plans:
+            for _ in range(2):
+                got = cs.construct_scatter(start.clone(), rows, docs, plan)
+                torch.cuda.synchronize()
+                require(torch.equal(got, want),
+                        f"construct_scatter {what} plan {plan}: kernel != "
+                        "plain")
+            cases += 1
+
+    for D in (1, 7, 8, 31, 33, 63, 1000, 1023):
         Wc = -(-D // 32)
         for case in ("random", "one_row", "edges", "empty", "dropped",
-                     "odd"):
+                     "odd", "two_strips", "unaligned"):
+            if case == "two_strips" and Wc < 2:
+                continue
             R1 = 4099
             n = {"empty": 0, "odd": 1_000_003}.get(case, 70_000)
             rows = torch.randint(0, R1, (n,), dtype=torch.int32,
@@ -921,15 +1002,23 @@ def phase_construct_edges(torch, cs, device_build) -> None:
                 rows[1::7] = -1
                 docs[2::7] = 32 * Wc
                 docs[3::7] = -5
-            start = torch.randint(-2**31, 2**31 - 1, (R1, Wc),
-                                  dtype=torch.int32, device=DEVICE)
-            want = cs.construct_scatter_reference(start.clone(), rows, docs)
-            for _ in range(2):
-                got = cs.construct_scatter(start.clone(), rows, docs)
-                torch.cuda.synchronize()
-                require(torch.equal(got, want),
-                        f"construct_scatter D={D} {case}: kernel != plain")
-            cases += 1
+            elif case == "two_strips":  # documents 28..35 in one chunk
+                docs = torch.randint(28, min(36, D), (n,),
+                                     dtype=torch.int32, device=DEVICE)
+            elif case == "unaligned":   # views 4 bytes past a boundary
+                rows = torch.cat([rows[:1], rows])[1:]
+                docs = torch.cat([docs[:1], docs])[1:]
+                require(rows.data_ptr() % 16 and docs.data_ptr() % 16,
+                        "the unaligned case is aligned")
+            check(R1, Wc, rows, docs, f"D={D} {case}")
+    R1 = (1 << 24) + 1
+    for D in (63, 64):
+        rows = torch.randint(0, R1, (1_000_003,), dtype=torch.int32,
+                             device=DEVICE)
+        rows[:4] = torch.tensor([0, R1 - 1, R1, -1])
+        docs = torch.randint(0, D, rows.shape, dtype=torch.int32,
+                             device=DEVICE)
+        check(R1, -(-D // 32), rows, docs, f"R1={R1} D={D}")
     # the device build through many upload chunks against the CPU build
     docs_dir = ROOT / "bench_data" / "construct_edges"
     write_fasta_corpus(docs_dir, 37, 200, 3000, seed=21)
@@ -946,7 +1035,8 @@ def phase_construct_edges(torch, cs, device_build) -> None:
                                            f"{chunk} != CPU build")
     shutil.rmtree(docs_dir)
     print(f"phase 10 construct_scatter: kernel == plain, and bit-equal on "
-          f"a second launch, at {cases} edge shapes; the device build of "
+          f"a second launch, at {cases} edge shapes and plans; the device "
+          f"build of "
           f"37 documents in chunks of 1,000 / 7,777 / 2^22 updates == its "
           f"CPU build")
 
@@ -1086,6 +1176,7 @@ def _phase_construct(torch, cs, card, root: Path, lens) -> dict:
     # of real updates (the first documents' rows, in order, as the device
     # build stages them) into the classic batch's words
     from cobs_tpu_torch.construct.bitmatrix import doc_row_indices
+    from cobs_tpu_torch.experiments import redesign_bench as rb
     from cobs_tpu_torch.ingest.document_list import DocumentList
 
     R1, Wc = sig + 1, -(-hdr.row_size // 4)
@@ -1103,25 +1194,65 @@ def _phase_construct(torch, cs, card, root: Path, lens) -> dict:
                torch.from_numpy(docs_of[i * n:(i + 1) * n]).to(DEVICE))
               for i in range(4)]
     del rows, docs_of
-    words = torch.zeros((R1, Wc), dtype=torch.int32, device=DEVICE)
+    words = torch.zeros((Wc, R1), dtype=torch.int32, device=DEVICE)
     got = cs.construct_scatter(words.clone(), *chunks[0])
     want = cs.construct_scatter_reference(words.clone(), *chunks[0])
     torch.cuda.synchronize()
     require(torch.equal(got, want), "construct_scatter at the main path's "
                                     "shape: kernel != plain")
-    del got, want
-    kernel_ms = median_device_ms(
-        torch, lambda i: cs.construct_scatter(words, *chunks[i % 4]))
-    plain_ms = median_device_ms(
-        torch, lambda i: cs.construct_scatter_reference(words,
-                                                        *chunks[i % 4]),
-        reps=5)
+    del got, want, words
+    # warm (successive launches on the same strips, as a build finds
+    # them) and with the L2 flushed before each launch, each beside the
+    # control (the earlier row-major kernel) in this call; its words
+    # equal the kernel's transposed after both have run
+    timing = rb.time_scatter(torch, cs, R1, Wc, chunks, plain=True)
     r, d = chunks[0]
     distinct = torch.unique(r.long() * Wc + (d.long() >> 5)).numel()
     nbytes = 8 * n + 2 * 4 * distinct
     bound_ms, bound_by = bound(nbytes, n)
-    del words, chunks
+    # R1 = 2^24 + 1 (a 64 MB strip, 2 GB of words at Wc = 32): the same
+    # documents with uniform random rows from a seed, the rows a Bloom
+    # filter of that size would give them
+    big_R1 = (1 << 24) + 1
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(12)
+    big = [(torch.randint(0, big_R1 - 1, (n,), generator=g,
+                          dtype=torch.int32, device=DEVICE), d)
+           for _, d in chunks]
+    big_timing = rb.time_scatter(torch, cs, big_R1, 32, big)
+    r, d = big[0]
+    big_distinct = torch.unique(r.long() * 32 + (d.long() >> 5)).numel()
+    big_bound_ms, _ = bound(8 * n + 8 * big_distinct, n)
+    del chunks, big, r, d
     torch.cuda.empty_cache()
+
+    # the kernel's device time inside one more classic device build, from
+    # a profiler window (the ring's events also hold the host's launch
+    # gaps), beside that build's event interval
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        prof_wall, prof_phases = construct_timed(
+            ct.classic_construct, docs, root / "profiled.cobs_classic",
+            ct.ClassicIndexParameters(term_size=k, num_hashes=h,
+                                      false_positive_rate=0.3))
+        torch.cuda.synchronize()
+    require(same_file(root / "profiled.cobs_classic",
+                      root / "device.cobs_classic"),
+            "the profiled classic build != the first one")
+    (root / "profiled.cobs_classic").unlink()
+    # one launch of the wrapper runs scatter_or, or bin_place then bin_or
+    in_build = {name: (e.self_device_time_total, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                for name in ("scatter_or", "bin_place", "bin_or")
+                if f"{name}(" in e.key}
+    require(in_build, "no scatter kernel in the profiled build")
+    prof_kernel_us = sum(us for us, _ in in_build.values())
+    prof_count = sum(in_build.get(name, (0, 0))[1]
+                     for name in ("scatter_or", "bin_place"))
 
     # query what was built: 64 queries of 1,030 bp cut from known
     # documents; each source document scores all 1,000 terms, and the
@@ -1170,16 +1301,34 @@ def _phase_construct(torch, cs, card, root: Path, lens) -> dict:
               f"{updates / wall / 1e6:.1f} M updates/s end to end; stages "
               f"(summed over batches and pages): {line}")
     dev_kernel = phases["classic", "device"].get("device_kernel", 0.0)
-    print(f"phase 10 construct_scatter: {kernel_ms:.4f} ms per launch of "
-          f"{n} updates ({n / kernel_ms / 1e6:.2f} G updates/s), bound "
-          f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B, {distinct} distinct "
-          f"words), plain {plain_ms:.3f} ms; classic build: "
-          f"{launches['classic']} launches, {dev_kernel * 1e3:.1f} ms of "
-          f"kernel ({updates / max(dev_kernel, 1e-9) / 1e9:.2f} G "
-          f"updates/s)")
+    kernel_ms = timing["ms"]
+    print(f"phase 10 construct_scatter at the main path's shape (Wc={Wc}, "
+          f"R1={R1}, {n} updates per launch, {card}): "
+          + rb.format_scatter(timing)
+          + f" (control = the row-major one-atomic kernel); bound "
+          f"{bound_ms:.4f} ms "
+          f"({bound_by}: {nbytes} B, {distinct} distinct words), kernel "
+          f"at {100 * bound_ms / kernel_ms:.1f} % of it warm and "
+          f"{100 * bound_ms / timing['flushed_ms']:.1f} % flushed "
+          f"({n / kernel_ms / 1e6:.2f} G updates/s warm); plain "
+          f"{timing['plain_ms']:.3f} ms")
+    print(f"phase 10 construct_scatter at R1={big_R1} (Wc=32, random rows, "
+          f"{card}): " + rb.format_scatter(big_timing)
+          + f"; bound {big_bound_ms:.4f} ms ({big_distinct} distinct "
+          "words)")
+    print(f"phase 10 classic build: {launches['classic']} launches, "
+          f"{dev_kernel * 1e3:.1f} ms of kernel interval (CUDA events "
+          f"around upload and launch; "
+          f"{updates / max(dev_kernel, 1e-9) / 1e9:.2f} G updates/s); a "
+          f"profiled classic build ({prof_wall:.3f} s wall): {prof_count} "
+          f"kernel launches, {prof_kernel_us / 1e3:.1f} ms of kernel device "
+          f"time ({prof_kernel_us / 1e3 / max(prof_count, 1):.4f} ms per "
+          f"launch) against an event interval of "
+          f"{prof_phases.get('device_kernel', 0.0) * 1e3:.1f} ms")
     return {"launches": launches["classic"] + launches["compact"],
-            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "ms": kernel_ms, "plain_ms": timing["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "control_ms": timing["control_ms"]}
 
 
 def main() -> int:
@@ -1194,6 +1343,7 @@ def main() -> int:
     from cobs_tpu_torch.construct.device import build_batch_matrix_device
     from cobs_tpu_torch.experiments import dma_gather_bench as bench
     from cobs_tpu_torch.experiments import gather_count_bench as gc_bench
+    from cobs_tpu_torch.experiments import redesign_bench
     from cobs_tpu_torch.ops import _build
     from cobs_tpu_torch.ops import construct_scatter as cs
     from cobs_tpu_torch.ops import device_hash as dh
@@ -1211,7 +1361,10 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    secs = _build.build()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        controls = pool.submit(redesign_bench.build_controls)
+        secs = _build.build()
+        secs.update(controls.result())
     print(f"build of {len(secs)} sources in parallel: "
           f"{time.perf_counter() - t0:.2f} s")
     for name, sec in secs.items():
@@ -1219,7 +1372,8 @@ def main() -> int:
         for line in _build.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 print("  ptxas: " + line.strip())
-        _build.load(name)
+        if name not in redesign_bench.CONTROLS:
+            _build.load(name)
 
     err = phase_mixed_shapes(torch, qk, np.random.default_rng(0))
     phase_golden(torch, qk, dh, Search)
@@ -1228,7 +1382,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     err = max(err, ref["err"], phase_wide_rows(torch, qk, dg, card))
     torch.cuda.empty_cache()
-    phase_hash_kernel(torch, dh, np.random.default_rng(5))
+    hash5 = phase_hash_kernel(torch, dh, np.random.default_rng(5), card)
     phase_gather_small(torch, dg, np.random.default_rng(6))
 
     # K2's path, with its count at 0 just before it
@@ -1271,7 +1425,7 @@ def main() -> int:
             launches=ref["launches"]["rows_from_queries"], max_abs_err=0,
             library_ms=None,
             streamed_launches=streamed["launches"]["rows_from_queries"],
-            **ref["hash"]),
+            control_ms=hash5["phase 3"]["control_ms"], **ref["hash"]),
         "dma_gather_rows": dict(
             launches=k2_launches, max_abs_err=0, ms=k2["ms"],
             plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],

@@ -18,7 +18,9 @@ cobs/util/misc.hpp:65-72, cobs/query/compact_index/mmap_search_file.cpp:
 With canonicalize=1 the bytes inside each query's length must be ACGT
 (`validate_queries` / `invalid_query_mask` check that on the host, where
 the reference dies per query: cobs/query/classic_search.cpp:66-107);
-canonicalize=0 (text mode) hashes arbitrary bytes 0..255.
+canonicalize=0 (text mode) hashes arbitrary bytes 0..255. The kernel takes
+the modulo by Barrett reduction with per-page factors (`barrett_factors`,
+kept resident beside sig_sizes and row_offsets by `page_tables`).
 
 Not ported: the 2-bit query packing (`pack_queries_2bit`,
 `decode_2bit_device`), a workaround for the TPU's slow host link; the
@@ -40,23 +42,58 @@ from cobs_tpu_torch.ingest.util import sliding_windows
 LAUNCHES = 0
 
 _THREADS = 128              # terms per block (csrc/device_hash.cu)
-_SHARED_BYTES = 48 * 1024   # static shared-memory limit without opt-in
+_SHARED_BYTES = 48 * 1024   # shared-memory limit without opt-in
+_STAGED_BYTES = 4 + 8       # staged bytes besides the tile's windows
 
 
-def _page_tables(sig_sizes, row_offsets, device) -> tuple:
-    """(sig_sizes, row_offsets) as int64 tensors on `device`; tensors
-    already there pass through, so a caller can keep them resident."""
-    out = []
-    for name, v in (("sig_sizes", sig_sizes), ("row_offsets", row_offsets)):
-        if not isinstance(v, torch.Tensor):
-            v = torch.from_numpy(np.asarray(v, dtype=np.uint64)
-                                 .astype(np.int64))
-        if v.dtype != torch.int64 or v.dim() != 1:
-            raise TypeError(f"{name} must be a 1-D int64 tensor or a "
-                            f"sequence of ints, got {v.dtype} "
-                            f"{tuple(v.shape)}")
-        out.append(v.to(device).contiguous())
-    return tuple(out)
+def barrett_factors(sig_sizes) -> np.ndarray:
+    """uint64 [P]: the Barrett factor floor((2^64 - 1) / sig) of each
+    page's signature size, with which the kernel takes x % sig as
+    ``r = x - umulhi(x, m) * sig`` and one conditional subtraction. The
+    factor is floor(2^64 / sig) except at powers of two, where it is one
+    less; the quotient estimate is then still floor(x / sig) or one
+    less, so the one correction stays exact, and sig = 1 needs no
+    special case."""
+    sig = np.asarray(sig_sizes, dtype=np.uint64)
+    if (sig == 0).any():
+        raise ValueError("signature sizes must be >= 1")
+    return np.uint64(0xFFFF_FFFF_FFFF_FFFF) // sig
+
+
+def _as_int64(name: str, v, device) -> torch.Tensor:
+    if not isinstance(v, torch.Tensor):
+        v = torch.from_numpy(np.asarray(v, dtype=np.uint64)
+                             .astype(np.int64))
+    if v.dtype != torch.int64 or v.dim() != 1:
+        raise TypeError(f"{name} must be a 1-D int64 tensor or a "
+                        f"sequence of ints, got {v.dtype} "
+                        f"{tuple(v.shape)}")
+    return v.to(device).contiguous()
+
+
+def page_tables(sig_sizes, row_offsets, device) -> tuple:
+    """(sig_sizes, row_offsets, barrett factors) as int64 [P] tensors on
+    `device`, the factors' u64 bits viewed as int64: the three per-page
+    tables of the kernel, made once so that an index keeps them resident
+    (`engine._PageLayout.page_tables`)."""
+    sig = _as_int64("sig_sizes", sig_sizes, "cpu")
+    mag = torch.from_numpy(barrett_factors(
+        sig.numpy().astype(np.uint64)).view(np.int64))
+    return (sig.to(device), _as_int64("row_offsets", row_offsets, device),
+            mag.to(device))
+
+
+def _page_tables(sig_sizes, row_offsets, barrett, device) -> tuple:
+    """The kernel's three tables on `device`: tensors already there pass
+    through, so a caller can keep them resident; the factors are made
+    from sig_sizes when none are given."""
+    if barrett is None:
+        if isinstance(sig_sizes, torch.Tensor):
+            sig_sizes = sig_sizes.cpu()
+        return page_tables(sig_sizes, row_offsets, device)
+    return (_as_int64("sig_sizes", sig_sizes, device),
+            _as_int64("row_offsets", row_offsets, device),
+            _as_int64("barrett", barrett, device))
 
 
 def _check(qdata, qlens, term_size, num_hashes, canonicalize, sig_sizes,
@@ -88,10 +125,12 @@ def _check(qdata, qlens, term_size, num_hashes, canonicalize, sig_sizes,
 def rows_from_queries_reference(qdata: torch.Tensor, qlens: torch.Tensor,
                                 term_size: int, num_hashes: int,
                                 canonicalize: int, sig_sizes, row_offsets,
-                                zero_row: int) -> torch.Tensor:
+                                zero_row: int, barrett=None
+                                ) -> torch.Tensor:
     """Plain version of the kernel on the host pipeline's numpy: sliding
-    windows, `canonicalize_batch`, `xxh64_multi_seed`, a uint64 modulo.
-    Returns int32 [B, T, h, P] on qdata's device."""
+    windows, `canonicalize_batch`, `xxh64_multi_seed`, a uint64 modulo
+    (`barrett`, the kernel's factors, is taken and not used). Returns
+    int32 [B, T, h, P] on qdata's device."""
     _check(qdata, qlens, term_size, num_hashes, canonicalize, sig_sizes,
            row_offsets)
     q = qdata.cpu().numpy()
@@ -123,19 +162,21 @@ def _lib():
     fn = lib.cobs_device_hash
     if fn.argtypes is None:  # ctypes caches fn on lib: declare once
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, i32, i32, i32, i32, i32, i32, vp, vp, i32,
-                       vp, vp]
+        fn.argtypes = [vp, vp, i32, i32, i32, i32, i32, i32, vp, vp, vp,
+                       i32, vp, vp]
         fn.restype = i32
     return fn
 
 
 def rows_from_queries(qdata: torch.Tensor, qlens: torch.Tensor,
                       term_size: int, num_hashes: int, canonicalize: int,
-                      sig_sizes, row_offsets, zero_row: int
-                      ) -> torch.Tensor:
+                      sig_sizes, row_offsets, zero_row: int,
+                      barrett=None) -> torch.Tensor:
     """qdata uint8 [B, L], qlens int32 [B] -> int32 [B, T, h, P] row ids
     (module docstring). sig_sizes / row_offsets: per-page sequences, or
-    int64 tensors already on qdata's device.
+    int64 tensors already on qdata's device; barrett: the kernel's
+    per-page Barrett factors as `page_tables` makes them (made here from
+    sig_sizes when None; the plain version takes a true `%`).
 
     CPU tensors go to the plain version. CUDA tensors launch the kernel
     on the current stream, without synchronizing, or raise: there is no
@@ -146,13 +187,13 @@ def rows_from_queries(qdata: torch.Tensor, qlens: torch.Tensor,
     if qdata.device.type == "cpu":
         return rows_from_queries_reference(
             qdata, qlens, term_size, num_hashes, canonicalize, sig_sizes,
-            row_offsets, zero_row)
+            row_offsets, zero_row, barrett)
     if qdata.device.type != "cuda":
         raise ValueError(f"no rows_from_queries kernel for {qdata.device}")
     B, L = qdata.shape
     T = L - term_size + 1
     P = len(sig_sizes)
-    if _THREADS + term_size - 1 > _SHARED_BYTES:
+    if _THREADS + term_size - 1 + _STAGED_BYTES > _SHARED_BYTES:
         raise ValueError(f"term_size={term_size} exceeds the kernel's "
                          "shared-memory window")
     if L >= 1 << 31 or -(-T // _THREADS) * B >= 1 << 31:
@@ -161,12 +202,13 @@ def rows_from_queries(qdata: torch.Tensor, qlens: torch.Tensor,
         raise ValueError(f"zero_row={zero_row} is not an int32 row id")
     fn = _lib()
     with torch.cuda.device(qdata.device):
-        sig, off = _page_tables(sig_sizes, row_offsets, qdata.device)
+        sig, off, mag = _page_tables(sig_sizes, row_offsets, barrett,
+                                     qdata.device)
         out = torch.empty((B, T, num_hashes, P), dtype=torch.int32,
                           device=qdata.device)
         rc = fn(qdata.data_ptr(), qlens.data_ptr(), B, L, term_size,
                 num_hashes, canonicalize, P, sig.data_ptr(), off.data_ptr(),
-                zero_row, out.data_ptr(),
+                mag.data_ptr(), zero_row, out.data_ptr(),
                 torch.cuda.current_stream(qdata.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"device_hash kernel launch failed: CUDA error "

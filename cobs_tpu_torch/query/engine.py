@@ -48,6 +48,7 @@ from cobs_tpu_torch.fmt import classic as fmt_classic
 from cobs_tpu_torch.fmt import compact as fmt_compact
 from cobs_tpu_torch.fmt.magic import FileIOError
 from cobs_tpu_torch.ingest.util import sliding_windows
+from cobs_tpu_torch.ops.device_hash import page_tables as device_hash_tables
 from cobs_tpu_torch.ops.device_hash import rows_from_queries
 from cobs_tpu_torch.ops.query_kernel import gather_and_count
 from cobs_tpu_torch.settings import settings
@@ -152,12 +153,13 @@ class _PageLayout:
             self.doc_layout, len(self.file_names))).to(self.device)
 
     @functools.cached_property
-    def page_tables(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """(sig_sizes, row_offsets) as int64 [P] tensors on the device:
-        the per-page modulo and offset of device hashing."""
-        return tuple(torch.from_numpy(np.asarray(a).astype(np.int64))
-                     .to(self.device)
-                     for a in (self.sig_sizes, self.row_offsets))
+    def page_tables(self) -> tuple[torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+        """(sig_sizes, row_offsets, Barrett factors) as int64 [P] tensors
+        on the device: the per-page modulo, offset and modulo factor of
+        device hashing (`device_hash.page_tables`)."""
+        return device_hash_tables(self.sig_sizes, self.row_offsets,
+                                  self.device)
 
 
 @dataclasses.dataclass
@@ -621,10 +623,10 @@ def _device_rows(index, qb: QueryBytes) -> torch.Tensor:
     """int32 [B, T, h, P] row ids of a QueryBytes batch, hashed on the
     index's device."""
     qdata, qlens = _device_hash_args(index, qb)
-    sig, off = index.page_tables
+    sig, off, mag = index.page_tables
     return rows_from_queries(qdata, qlens, index.term_size,
                              index.num_hashes, index.canonicalize, sig, off,
-                             index.zero_row)
+                             index.zero_row, mag)
 
 
 def _gather_count(index: DeviceIndex, payload) -> torch.Tensor:

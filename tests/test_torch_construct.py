@@ -253,9 +253,9 @@ def _oracle(R1, Wc, rows, docs):
                                   "dropped"])
 def test_scatter_plain_version_edges(D, case):
     """construct_scatter on CPU tensors (the plain version) against a
-    numpy oracle, ORed into words that already hold bits: n = 0, every
-    update to one row, rows 0 and R1 - 1, duplicates, and updates outside
-    the matrix, which are dropped."""
+    numpy oracle, ORed into word-major words [Wc, R1] that already hold
+    bits: n = 0, every update to one row, rows 0 and R1 - 1, duplicates,
+    and updates outside the matrix, which are dropped."""
     rng = np.random.default_rng(D)
     R1, Wc = 97, -(-D // 32)
     n = 0 if case == "empty" else 3000
@@ -272,12 +272,106 @@ def test_scatter_plain_version_edges(D, case):
         docs[2::7] = 32 * Wc + 3
         docs[3::7] = -2
     start = rng.integers(-2**31, 2**31, (R1, Wc)).astype(np.int32)
-    words = torch.from_numpy(start.copy())
+    words = torch.from_numpy(start.T.copy())
     out = cs.construct_scatter(words, torch.from_numpy(rows.astype(np.int32)),
                                torch.from_numpy(docs.astype(np.int32)))
     assert out is words
     np.testing.assert_array_equal(
-        words.numpy(), start | _oracle(R1, Wc, rows, docs))
+        words.numpy().T, start | _oracle(R1, Wc, rows, docs))
+
+
+@pytest.mark.parametrize("D", [1, 7, 8, 31, 33, 1000])
+@pytest.mark.parametrize("case", ["random", "one_row", "edges", "empty",
+                                  "dropped"])
+def test_scatter_plain_version_matches_cobs_tpu(D, case):
+    """The plain version's word-major words, transposed back to rows,
+    equal cobs_tpu's `_scatter_single` + `_pack_plane` (JAX on the CPU)
+    at the edge shapes. Out-of-range ids are past the end only: JAX's
+    `.at[]` wraps negative ids before mode="drop" applies, which the port
+    drops instead (construction never makes a negative id)."""
+    import jax.numpy as jnp
+
+    from cobs_tpu.construct.device import _pack_plane, _scatter_single
+
+    rng = np.random.default_rng(100 + D)
+    R1, Wc = 97, -(-D // 32)
+    n = 0 if case == "empty" else 3000
+    rows = rng.integers(0, R1, n).astype(np.int32)
+    docs = rng.integers(0, D, n).astype(np.int32)
+    if case == "one_row":
+        rows[:] = R1 - 1
+    elif case == "edges":
+        rows = np.where(rng.random(n) < 0.5, 0, R1 - 1).astype(np.int32)
+        rows[1::2], docs[1::2] = rows[::2], docs[::2]
+    elif case == "dropped":
+        rows[::7] = R1 + rng.integers(0, 5, rows[::7].size)
+        docs[2::7] = 32 * Wc + 3
+    plane = _scatter_single(jnp.zeros((R1, 32 * Wc), jnp.uint8),
+                            jnp.asarray(rows), jnp.asarray(docs))
+    want = np.asarray(_pack_plane(plane)).view(np.int32)
+    words = torch.zeros((Wc, R1), dtype=torch.int32)
+    cs.construct_scatter_reference(words, torch.from_numpy(rows),
+                                   torch.from_numpy(docs))
+    np.testing.assert_array_equal(words.numpy().T, want)
+
+
+def test_scatter_chunk_across_two_strips():
+    """One chunk with documents on both sides of a strip boundary (31 and
+    32) and the last document of the last strip (32 Wc - 1) sets each bit
+    in its own strip."""
+    R1, Wc = 11, 3
+    rows = torch.tensor([0, 5, 5, 10, 3], dtype=torch.int32)
+    docs = torch.tensor([31, 32, 31, 95, 64], dtype=torch.int32)
+    words = cs.construct_scatter(torch.zeros((Wc, R1), dtype=torch.int32),
+                                 rows, docs)
+    want = np.zeros((Wc, R1), dtype=np.uint32)
+    for r, d in zip(rows.tolist(), docs.tolist()):
+        want[d // 32, r] |= np.uint32(1 << (d % 32))
+    np.testing.assert_array_equal(words.numpy().view(np.uint32), want)
+
+
+def test_device_build_scatters_word_major(tmp_path, monkeypatch):
+    """The device build hands the scatter word-major words
+    [ceil(docs / 32), signature_size + 1] and its fetch transposes them
+    back: the bytes equal the host scatter's."""
+    from cobs_tpu_torch.construct import device as dev_mod
+
+    docs = _corpus(tmp_path, n_docs=40)
+    entries = ct.DocumentList(docs).list()
+    sig, row_size = 1009, -(-len(entries) // 8)
+    shapes = []
+    real = dev_mod.construct_scatter
+
+    def spy(words, rows, docs_):
+        shapes.append(tuple(words.shape))
+        return real(words, rows, docs_)
+
+    monkeypatch.setattr(dev_mod, "construct_scatter", spy)
+    got = build_batch_matrix_device(entries, sig, row_size, 31, 2, 1,
+                                    lambda m: None, device="cpu",
+                                    chunk=5000)
+    assert shapes and set(shapes) == {(2, sig + 1)}
+    np.testing.assert_array_equal(
+        got, build_batch_matrix(entries, sig, row_size, 31, 2, 1,
+                                lambda m: None))
+
+
+@pytest.mark.parametrize("n,R1,Wc,binned", [
+    (0, 4099, 1, False), ((1 << 16) - 1, 2_803_591, 32, False),
+    (1 << 16, 4099, 1, True), (1 << 22, 2_803_592, 32, True),
+    (1 << 22, (1 << 24) + 1, 32, True), (1 << 22, 1 << 25, 2, True),
+    (1 << 22, 1 << 25, 4, True), (1 << 22, (1 << 25) + 1, 4, False)])
+def test_scatter_plan(n, R1, Wc, binned):
+    """plan_scatter bins full chunks while the bins fit the kernel's
+    histogram (slots x row blocks <= MAX_BINS), with every row in a row
+    block and room for a quarter more than a bin's share of the chunk."""
+    plan = cs.plan_scatter(n, R1, Wc)
+    assert plan.binned == binned
+    if binned:
+        assert plan.slots == min(cs.MAX_SLOTS, Wc)
+        assert plan.nblk * cs.ROW_BLOCK >= R1 > (plan.nblk - 1) * cs.ROW_BLOCK
+        assert plan.slots * plan.nblk <= cs.MAX_BINS
+        assert plan.cap * plan.nblk >= 1.25 * n and plan.cap % 4 == 0
 
 
 def test_scatter_checks_its_arguments():

@@ -184,3 +184,131 @@ def test_invalid_query_mask_matches_jax(rng, canonicalize):
     np.testing.assert_array_equal(got,
                                   jdh.invalid_query_mask(arr, canonicalize))
     assert got.sum() == (3 if canonicalize else 0)
+
+
+#: signature sizes of the Barrett checks: the smallest, small primes, a
+#: power of two and its neighbour, and the largest int32 row space
+BARRETT_SIGS = [1, 2, 3, 1009, 65537, 1 << 21, (1 << 21) + 1, (1 << 31) - 1]
+
+
+def _barrett_mod(x: int, sig: int, m: int) -> int:
+    """Python twin of the kernel's `mod_barrett`: x % sig for
+    0 <= x < 2^64 and m = (2^64 - 1) // sig, step for step as the kernel
+    computes it in 64-bit registers."""
+    q = (x * m) >> 64                  # __umul64hi(x, m)
+    r = (x - q * sig) % (1 << 64)      # wraps as u64 arithmetic does
+    return r - sig if r >= sig else r
+
+
+@pytest.mark.parametrize("sig", BARRETT_SIGS)
+def test_barrett_twin_equals_modulo(sig):
+    """The kernel's Barrett step (its Python twin, with the factor of
+    `barrett_factors`) equals % at the edges of each quotient and at 10^4
+    random 64-bit values."""
+    m = int(tdh.barrett_factors([sig])[0])
+    assert m == (2**64 - 1) // sig
+    xs = [0, 1, 1 << 63, 2**64 - 1, 2**64 - 2, (1 << 63) - 1]
+    for j in (1, 2, 7, 2**64 // sig - 1, 2**64 // sig):
+        xs += [x for x in (sig * j - 1, sig * j, sig * j + 1)
+               if 0 <= x < 2**64]
+    gen = np.random.default_rng(sig)
+    xs += [int(x) for x in gen.integers(0, 2**64, size=10_000,
+                                        dtype=np.uint64)]
+    for x in xs:
+        assert _barrett_mod(x, sig, m) == x % sig, (x, sig)
+
+
+def test_page_tables_hold_barrett_factors():
+    sig, off, mag = tdh.page_tables((1, 1009, 1 << 21), (0, 1, 1010), "cpu")
+    assert sig.tolist() == [1, 1009, 1 << 21]
+    assert off.tolist() == [0, 1, 1010]
+    assert mag.dtype == torch.int64
+    assert (mag.numpy().view(np.uint64).tolist()
+            == [(2**64 - 1) // s for s in (1, 1009, 1 << 21)])
+    with pytest.raises(ValueError, match=">= 1"):
+        tdh.barrett_factors([3, 0])
+
+
+_M32 = np.uint64(0xFFFF_FFFF)
+
+
+def _words(s, start, step, count):
+    """uint64 [n, count]: the kernel's `Words` over the staged bytes
+    (uint32 words `s`): word j is the funnel shift of the aligned words
+    at (start + 4 step j) // 4 and the one after it."""
+    start = np.asarray(start)
+    wi = (start >> 2)[:, None] + step * np.arange(count)[None, :]
+    sh = ((start & 3) * 8).astype(np.uint64)[:, None]
+    lo, hi = s[wi].astype(np.uint64), s[wi + 1].astype(np.uint64)
+    return (((hi << np.uint64(32)) | lo) >> sh) & _M32
+
+
+def _complement4(x):
+    return (x ^ np.uint64(0x15151515)
+            ^ (((x >> np.uint64(1)) & np.uint64(0x01010101))
+               * np.uint64(0x11))) & _M32
+
+
+def _bswap32(x):
+    return (((x & np.uint64(0xFF)) << np.uint64(24))
+            | ((x & np.uint64(0xFF00)) << np.uint64(8))
+            | ((x >> np.uint64(8)) & np.uint64(0xFF00))
+            | (x >> np.uint64(24))) & _M32
+
+
+def _swar_canonical(seq: np.ndarray, k: int) -> tuple[np.ndarray,
+                                                      np.ndarray]:
+    """numpy twin of the kernel's SWAR path over every window of `seq`:
+    the strand choice (`reverse_is_smaller`) and the hashed key's bytes
+    rebuilt from `Key::word`. Staged as the kernel stages a tile: 4 pad
+    bytes, the bytes, 8 more, in whole words."""
+    n = seq.size - k + 1
+    nbytes = -(-(4 + seq.size + 8) // 4) * 4
+    buf = np.zeros(nbytes, dtype=np.uint8)
+    buf[4:4 + seq.size] = seq
+    s = buf.view("<u4")
+    base = 4 + np.arange(n)
+    half = k // 2
+    rev = np.zeros(n, dtype=bool)
+    if half:
+        nw = -(-half // 4)
+        rem = half - 4 * (nw - 1)
+        last = np.uint64(0xFFFFFFFF if rem == 4
+                         else (0xFFFFFFFF & ~(0xFFFFFFFF >> (8 * rem))))
+        f = _bswap32(_words(s, base, 1, nw))
+        r = _complement4(_words(s, base + k - 4, -1, nw))
+        f[:, -1] &= last
+        r[:, -1] &= last
+        differ = f != r
+        first = differ.argmax(axis=1)
+        rows = np.arange(n)
+        rev = differ.any(axis=1) & (f[rows, first] > r[rows, first])
+    nk = -(-k // 4)
+    fwd = _words(s, base, 1, nk)
+    bwd = _complement4(_bswap32(_words(s, base + k - 4, -1, nk)))
+    key = np.where(rev[:, None], bwd, fwd).astype("<u4")
+    return rev, key.view(np.uint8).reshape(n, 4 * nk)[:, :k]
+
+
+@pytest.mark.parametrize("k", [7, 15, 31, 32, 33, 64])
+def test_swar_canonical_twin_matches_canonicalize_batch(rng, k):
+    """The kernel's word-wide reverse complement and truncated canonical
+    compare, as a numpy twin, pick the same strand and key bytes as
+    `canonicalize_batch` at every window start (every offset mod 8) of
+    sequences whose lengths are not multiples of 4, including windows
+    whose halves tie."""
+    from cobs_tpu_torch.core.canonical import canonicalize_batch
+
+    seen = set()
+    for length in (k, k + 1, k + 2, 4 * k + 3, 203):
+        seq = ACGT[rng.integers(0, 4, size=length)]
+        if length == 4 * k + 3:  # a palindrome: the halves tie
+            seq[:k] = canonicalize_batch(seq[:k][None])[0][0]
+            rc = {65: 84, 67: 71, 71: 67, 84: 65}
+            seq[k - k // 2:k] = [rc[c] for c in seq[:k // 2][::-1]]
+        rev, key = _swar_canonical(seq, k)
+        windows = np.lib.stride_tricks.sliding_window_view(seq, k)
+        want, _ = canonicalize_batch(windows)
+        np.testing.assert_array_equal(key, want)
+        seen.update(rev.tolist())
+    assert seen == {False, True}
