@@ -24,9 +24,10 @@ torch.cuda.synchronize():
    seed; 64 random 1,030 bp queries through
    `Search.search_batch(threshold=0, num_results=100)`, hashed on the
    card (the default). It launches the hash kernel and K1 (and
-   `search_stream` launches each once per batch); its ranked results
-   equal host hashing's, search_stream's and a numpy ranking of the plain
-   scores;
+   `search_stream` launches each once for its two batches as one
+   multi-batch group, and once per batch with `mega_batches` 1); its
+   ranked results equal host hashing's, search_stream's and a numpy
+   ranking of the plain scores;
    the hash kernel's row ids equal the host pipeline's; K1's full score
    tensors and top-k pairs equal the plain version's. Then `search_batch`
    and `search_stream` over 16 batches of 64 queries are timed (q/s and
@@ -89,7 +90,28 @@ torch.cuda.synchronize():
    profiler window; stage times and updates/s; 64 queries of 1,030
    bp cut from known documents on the device-built classic index: each
    source document scores all 1,000 terms, and the top 100 equal streamed
-   host scoring's.
+   host scoring's;
+11. serving: `python -m cobs_tpu_torch.cli.main serve` in subprocesses
+   on the golden classic and compact files, held and `--streamed`
+   (started together): `QueryClient` gets the reference's lines at -t 0.8
+   and 0, and SIGTERM exits 0 and removes the socket. Then phase 9's
+   file (written again from its seed) held on the card and served by an
+   in-process `QueryServer` (top 100, floor 0, B=64, linger 2 ms,
+   `warmup(1030)`): 8 client threads each pipeline 512 random 1,030 bp
+   queries through `QueryClient.search_batch`, every response equal to
+   `Search.search_batch`'s, with multi-batch groups dispatched and fewer
+   K1 and hash launches than batches; again with `mega_batches` 1
+   (identical responses, one launch per batch); at full ranking with
+   floor 0.8 (half the clients at 0.52, the sub-floor path); streamed
+   (device scoring, 1,024 queries, equal to the held responses); and a
+   `reload` at full width, after which the responses are unchanged.
+   The hash kernel and K1 equal their plain versions on the payloads
+   multi-batch dispatch builds: a group of K batches for every K from 2
+   to 16 (B up to 1,024 rows), one of mixed query lengths with flagged
+   queries, and host-hashed rows of a group of 16.
+   Prints served q/s beside `search_stream`'s on the same queries,
+   latency p50/p99, batches, groups, `Timer` phases, launches per batch,
+   the card's busy share while serving and the reload's seconds.
 
 Prints the card's name and power limit, the build times, the times, then
 a JSON line of the kernels and, last, the device JSON line. Any failure
@@ -338,13 +360,23 @@ def phase_reference_scale(torch, qk, dh, engine, Search, settings,
     require(pairs(results) == pairs(host_results),
             "reference scale: device hashing ranks differently from host "
             "hashing")
-    qk.LAUNCHES = dh.LAUNCHES = 0
-    streamed = list(s.search_stream(queries, 0.0, k, batch_size=B // 2))
-    require(qk.LAUNCHES == dh.LAUNCHES == 2,
-            f"search_stream over 2 batches launched K1 {qk.LAUNCHES} and "
-            f"the hash kernel {dh.LAUNCHES} times")
-    require(pairs(streamed) == pairs(results),
-            "reference scale: search_stream ranks differently")
+    # search_stream over 2 batches: one multi-batch group by default
+    # (settings.mega_batches), one dispatch per batch with it at 1
+    mega = settings.mega_batches
+    for groups, want_launches in ((mega, 1), (1, 2)):
+        settings.mega_batches = groups
+        try:
+            qk.LAUNCHES = dh.LAUNCHES = 0
+            streamed = list(s.search_stream(queries, 0.0, k,
+                                            batch_size=B // 2))
+        finally:
+            settings.mega_batches = mega
+        require(qk.LAUNCHES == dh.LAUNCHES == want_launches,
+                f"search_stream over 2 batches, mega_batches={groups}, "
+                f"launched K1 {qk.LAUNCHES} and the hash kernel "
+                f"{dh.LAUNCHES} times")
+        require(pairs(streamed) == pairs(results),
+                "reference scale: search_stream ranks differently")
 
     # the hash kernel against the host pipeline (create_hashes +
     # row_indices) and its plain version
@@ -1331,6 +1363,381 @@ def _phase_construct(torch, cs, card, root: Path, lens) -> dict:
             "control_ms": timing["control_ms"]}
 
 
+def sock_dir() -> Path:
+    """A new directory for phase 11's Unix sockets (under TMPDIR: a
+    socket path must stay under 108 bytes)."""
+    import tempfile
+
+    return Path(tempfile.mkdtemp(prefix="cobs_p11_"))
+
+
+def wait_for(path: Path, proc, seconds: float) -> None:
+    deadline = time.monotonic() + seconds
+    while not path.exists():
+        require(proc.poll() is None, f"serve for {path.name} exited "
+                                     f"{proc.returncode} before serving")
+        require(time.monotonic() < deadline, f"{path.name} never appeared")
+        time.sleep(0.05)
+
+
+def phase_serve_cli(QueryClient) -> None:
+    """Phase 11 (a): `cobs serve` subprocesses on the golden files, held
+    and streamed, all started together."""
+    d = sock_dir()
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for kind in ("classic", "compact"):
+            for streamed in (False, True):
+                name = f"{kind}{'_st' if streamed else ''}"
+                sock = d / f"{name}.sock"
+                sock.unlink(missing_ok=True)
+                log = open(d / f"{name}.log", "wb")
+                procs[name] = (sock, log, subprocess.Popen(
+                    [sys.executable, "-m", "cobs_tpu_torch.cli.main",
+                     "serve", "-i", str(GOLDEN_DIR / f"fasta7.cobs_{kind}"),
+                     "--socket", str(sock), "-t", "0", "--linger-ms", "1"]
+                    + (["--streamed"] if streamed else []),
+                    cwd=ROOT, stdout=log, stderr=subprocess.STDOUT))
+        for name, (sock, log, proc) in procs.items():
+            wait_for(sock, proc, 300)
+        ready_s = time.perf_counter() - t0
+        for name, (sock, log, proc) in procs.items():
+            with QueryClient(str(sock), timeout=60) as c:
+                got = pairs([c.search(GOLDEN_QUERY, threshold=0.8),
+                             c.search(GOLDEN_QUERY, threshold=0.0)])
+                require(got == [GOLDEN_LINES[:1], GOLDEN_LINES],
+                        f"serve {name}: {got}")
+            proc.terminate()
+            rc = proc.wait(timeout=60)
+            require(rc == 0, f"serve {name}: SIGTERM gave rc {rc}")
+            require(not sock.exists(), f"serve {name} left its socket")
+    except BaseException:
+        for name, (sock, log, proc) in procs.items():
+            log.flush()
+            tail = (d / f"{name}.log").read_bytes()[-2000:]
+            print(f"phase 11 serve {name} log: "
+                  f"{tail.decode(errors='replace')}", file=sys.stderr)
+        raise
+    finally:
+        for sock, log, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+            log.close()
+        shutil.rmtree(d, ignore_errors=True)
+    print(f"phase 11 cobs serve (subprocesses, golden classic and compact, "
+          f"held and --streamed): all four serving {ready_s:.1f} s after "
+          "start; QueryClient got the reference's lines at -t 0.8 and 0; "
+          "SIGTERM gave rc 0 and removed each socket")
+
+
+def served_load(QueryClient, srv, chunks, threshold=None) -> tuple:
+    """One client thread per chunk, each pipelining its queries through
+    QueryClient.search_batch; `threshold` is one value or one per chunk.
+    Returns (wall seconds from the first send to the last response, the
+    responses in query order)."""
+    import threading
+
+    n = len(chunks)
+    thr = threshold if isinstance(threshold, list) else [threshold] * n
+    out, errors = [None] * n, []
+    go = threading.Barrier(n + 1)
+
+    def client(i):
+        try:
+            with QueryClient(srv.address, timeout=120) as c:
+                c.ping()
+                go.wait()
+                out[i] = c.search_batch(chunks[i], threshold=thr[i],
+                                        strict=True)
+        except BaseException as e:  # raised below
+            errors.append(e)
+            go.abort()
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    go.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    require(not errors, f"a client failed: {errors[:1]!r}")
+    require(not any(t.is_alive() for t in threads), "a client hung")
+    return wall, [rl for part in out for rl in part]
+
+
+def same_pairs(got, want) -> bool:
+    """Client SearchResult lists equal embedded ResultLists."""
+    return pairs(got) == pairs(want)
+
+
+def group_kernels(torch, qk, dh, engine, s, settings, queries,
+                  B: int) -> int:
+    """The hash kernel and K1 against their plain versions, exact, on the
+    payloads multi-batch dispatch builds (engine._concat_payloads of the
+    batches' `_hash_batch_lenient` payloads): a group of K batches for
+    every K from 2 to the ceiling (B = K * 64 rows), one group of four
+    batches of mixed query lengths (rows padded to the longest, a
+    too-short and a non-ACGT query flagged to length 0), and K1 on the
+    host-hashed rows of the largest group. Returns the groups checked."""
+    from cobs_tpu_torch.utils.timer import Timer
+
+    ix = s.index_files[0]
+    sig, off, mag = ix.page_tables
+    rng = np.random.default_rng(12)
+    mixed = [[q[:n] for q, n in zip(queries[i * B:(i + 1) * B],
+                                    rng.integers(31, 200 * (i + 1) + 31, B))]
+             for i in range(4)]
+    mixed[1][1] = "ACGT"
+    mixed[2][3] = mixed[2][3][:40] + "N" + mixed[2][3][41:]
+    mega = s._mega_k_capped(B, 100)
+    groups = [[queries[i * B:(i + 1) * B] for i in range(K)]
+              for K in range(2, mega + 1)] + [mixed]
+
+    def payloads(group):
+        out, flagged = [], 0
+        for batch in group:
+            hashed, errors = s._hash_batch_lenient(
+                [q.encode() for q in batch], Timer())
+            out.append(hashed[0])
+            flagged += sum(e is not None for e in errors)
+        require(flagged == (2 if group is mixed else 0),
+                f"phase 11 groups: {flagged} queries flagged")
+        return engine._concat_payloads(ix, out)
+
+    def k1_equal(rows, what):
+        got = qk.gather_and_count(ix.matrix, rows, ix.num_hashes)
+        want = qk.gather_and_count_reference(ix.matrix, rows, ix.num_hashes)
+        require(torch.equal(got, want), f"phase 11 groups: K1 != plain "
+                                        f"({what}), {max_err(got, want)}")
+
+    for group in groups:
+        cat = payloads(group)
+        require(isinstance(cat, engine.QueryBytes),
+                "phase 11 groups: the payload was not hashed on the card")
+        qdata, qlens = engine._device_hash_args(ix, cat)
+        args = (qdata, qlens, ix.term_size, ix.num_hashes, ix.canonicalize,
+                sig, off, ix.zero_row, mag)
+        rows = dh.rows_from_queries(*args)
+        what = f"K={len(group)}, B={len(cat)}, L={qdata.shape[1]}"
+        require(torch.equal(rows, dh.rows_from_queries_reference(*args)),
+                f"phase 11 groups: hash kernel != plain ({what})")
+        k1_equal(rows, what)
+    settings.device_hash = "host"
+    try:
+        cat = payloads(groups[-2])
+    finally:
+        settings.device_hash = "auto"
+    k1_equal(engine._rows_tensor(ix, cat), f"host hashes, B={len(cat)}")
+    torch.cuda.synchronize()
+    return len(groups) + 1
+
+
+def phase_serve(torch, qk, dh, engine, Search, QueryServer, QueryClient,
+                settings, card: str, rows: int = 1 << 21,
+                conns: int = 8, per_conn: int = 512) -> dict:
+    """Phase 11 (b): phase 9's file held on the card and served in
+    process; see the module docstring."""
+    docs, L, k, B = 10_000, 1030, 100, 64
+    path = ROOT / "bench_data" / "phase9_reference.cobs_classic"
+    t0 = time.perf_counter()
+    size = write_classic_index(path, rows, docs, seed=9)
+    print(f"phase 11 wrote {path.name} again from phase 9's seed: {size} "
+          f"bytes in {time.perf_counter() - t0:.1f} s")
+    d = sock_dir()
+    try:
+        return _phase_serve(torch, qk, dh, engine, Search, QueryServer,
+                            QueryClient, settings, card, path, d, docs, L,
+                            k, B, conns, per_conn)
+    finally:
+        path.unlink(missing_ok=True)
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _phase_serve(torch, qk, dh, engine, Search, QueryServer, QueryClient,
+                 settings, card, path, d, docs, L, k, B, conns,
+                 per_conn) -> dict:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n_q = conns * per_conn
+    queries = acgt_queries(np.random.default_rng(11), n_q, L)
+    chunks = [queries[i * per_conn:(i + 1) * per_conn] for i in range(conns)]
+    t0 = time.perf_counter()
+    s = Search(str(path))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    require(isinstance(s.index_files[0], engine.DeviceIndex),
+            "phase 11: the index was not held on the card")
+    require(settings.mega_batches == 16 and s._mega_k_capped(B, k) == 16,
+            f"phase 11: multi-batch ceiling {s._mega_k_capped(B, k)}")
+    # the embedded answers, batch by batch, and search_stream on the
+    # same queries (its q/s beside the served q/s)
+    want = [rl for i in range(0, n_q, B)
+            for rl in s.search_batch(queries[i:i + B], 0.0, k)]
+    list(s.search_stream(queries[:2 * B], 0.0, k, batch_size=B))
+    t0 = time.perf_counter()
+    streamed = list(s.search_stream(queries, 0.0, k, batch_size=B))
+    stream_qps = n_q / (time.perf_counter() - t0)
+    require(same_ranking(streamed, want), "phase 11: search_stream != "
+                                          "search_batch")
+
+    def server(search=s, **kw):
+        srv = QueryServer(search, **{
+            "unix_path": str(d / "full.sock"), "batch_size": B,
+            "linger_ms": 2.0, "threshold": 0.0, "num_results": k, **kw})
+        srv.warmup(L)
+        torch.cuda.synchronize()
+        return srv
+
+    def stats(srv):
+        with QueryClient(srv.address, timeout=60) as c:
+            return c.stats()
+
+    runs = {}
+    for mode, groups in (("mega on", settings.mega_batches), ("mega off", 1)):
+        mega = settings.mega_batches
+        settings.mega_batches = groups
+        try:
+            srv = server()
+        finally:
+            settings.mega_batches = mega
+        with srv:
+            s.timer_.reset()
+            # the served path, with the counts at 0 just before it
+            qk.LAUNCHES = dh.LAUNCHES = 0
+            wall, got = served_load(QueryClient, srv, chunks)
+            torch.cuda.synchronize()
+            launches = (qk.LAUNCHES, dh.LAUNCHES)
+            st = stats(srv)
+            phases = timer_line(s.timer_, st["batches"])
+            busy = None
+            if mode == "mega on":
+                # the card's busy share over one more served load (the
+                # profiler records device activity only)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    busy_wall, again = served_load(QueryClient, srv, chunks)
+                    torch.cuda.synchronize()
+                busy_us = sum(e.self_device_time_total
+                              for e in prof.key_averages()
+                              if e.device_type == DeviceType.CUDA)
+                busy = (busy_us / 1e6 / busy_wall, busy_wall)
+                require(same_pairs(again, want),
+                        "phase 11: the profiled load's responses differ")
+        require(same_pairs(got, want), f"phase 11 {mode}: a served response "
+                                       "!= Search.search_batch's")
+        require(st["queries"] == n_q and st["batch_failures"] == 0
+                and st["overflowed_connections"] == 0, f"phase 11 {mode}: "
+                                                        f"stats {st}")
+        require(min(launches) > 0, f"phase 11 {mode}: served load launched "
+                                   f"K1 and the hash kernel {launches}")
+        runs[mode] = dict(wall=wall, launches=launches, stats=st,
+                          phases=phases, busy=busy)
+    on, off = runs["mega on"], runs["mega off"]
+    require(on["stats"]["mega_dispatches"] > 0,
+            "phase 11: no multi-batch group was dispatched")
+    require(max(on["launches"]) < on["stats"]["batches"],
+            f"phase 11: {on['launches']} launches for "
+            f"{on['stats']['batches']} batches with multi-batch dispatch")
+    require(off["stats"]["mega_dispatches"] == 0
+            and off["launches"] == (off["stats"]["batches"],) * 2,
+            f"phase 11 mega off: {off['launches']} launches for "
+            f"{off['stats']['batches']} batches")
+    # the kernels at the group shapes the served path gives them, after
+    # its counts were read
+    t0 = time.perf_counter()
+    n_groups = group_kernels(torch, qk, dh, engine, s, settings, queries, B)
+    groups_s = time.perf_counter() - t0
+
+    # full ranking at floor 0.8, half the clients at 0.52 (the sub-floor
+    # slow path re-ranks their batches)
+    n_full = conns * 128
+    full_chunks = [c[:128] for c in chunks]
+    thr = [0.8] * (conns // 2) + [0.52] * (conns - conns // 2)
+    full_want = [rl for c, t in zip(full_chunks, thr)
+                 for i in range(0, len(c), B)
+                 for rl in s.search_batch(c[i:i + B], t, 0)]
+    with server(threshold=0.8, num_results=0) as srv:
+        full_wall, got = served_load(QueryClient, srv, full_chunks, thr)
+        full_st = stats(srv)
+    require(same_pairs(got, full_want), "phase 11 full ranking: a served "
+                                        "response != Search.search_batch's")
+    require(full_st["subfloor_batches"] > 0, "phase 11: no sub-floor batch")
+    full_hits = sum(len(rl) for rl in full_want) / n_full
+
+    # streamed (device scoring), one dispatch per batch
+    s_st = Search(str(path), streamed=True)
+    require(isinstance(s_st.index_files[0], engine.StreamedIndex)
+            and not s_st.index_files[0].scores_on_host(),
+            "phase 11: not a device-scored StreamedIndex")
+    st_chunks = [c[:128] for c in chunks]
+    with server(search=s_st) as srv:
+        require(srv._mega == 1, "phase 11: a streamed server packs groups")
+        st_wall, got = served_load(QueryClient, srv, st_chunks)
+        st_st = stats(srv)
+    require(same_pairs(got, [rl for c in range(conns)
+                             for rl in want[c * per_conn:c * per_conn + 128]]),
+            "phase 11 streamed: a served response != the held path's")
+    del s_st
+
+    # reload at full width: the old set serves until the new one is built
+    def factory(paths=None):
+        return Search(list(paths) if paths else [str(path)])
+
+    with server(search_factory=factory) as srv:
+        with QueryClient(srv.address, timeout=300) as c:
+            t0 = time.perf_counter()
+            info = c.reload()
+            reload_s = time.perf_counter() - t0
+        require(info == {"documents": docs, "indices": 1},
+                f"phase 11 reload: {info}")
+        require(srv.search is not s, "phase 11: reload kept the old set")
+        _, got = served_load(QueryClient, srv, chunks[:1])
+    require(same_pairs(got, want[:per_conn]),
+            "phase 11: responses after the reload differ")
+    torch.cuda.synchronize()
+
+    print(f"phase 11 served reference scale ({docs} documents, "
+          f"{s.index_files[0].zero_row}+1 rows held on the card, B={B}, top "
+          f"{k}, {conns} clients x {per_conn} "
+          f"pipelined 1,030 bp queries, {card}): index load {load_s:.2f} s; "
+          "every response == Search.search_batch's")
+    for mode, r in runs.items():
+        st = r["stats"]
+        print(f"phase 11 {mode}: {n_q / r['wall']:.0f} q/s served; "
+              f"latency p50 {st.get('lat_p50_ms')} ms, p99 "
+              f"{st.get('lat_p99_ms')} ms; {st['batches']} batches, "
+              f"{st['mega_dispatches']} multi-batch groups; K1 "
+              f"{r['launches'][0]} and hash {r['launches'][1]} launches "
+              f"({r['launches'][0] / st['batches']:.3f} per batch); per "
+              f"batch: {r['phases']}")
+    busy, busy_wall = on["busy"]
+    print(f"phase 11 search_stream on the same queries: {stream_qps:.0f} "
+          f"q/s; profiled served load (mega on): {n_q / busy_wall:.0f} q/s, "
+          f"card {100 * busy:.1f} % busy")
+    print(f"phase 11 hash kernel and K1 == plain on {n_groups} concatenated "
+          f"group payloads (K = 2-{s._mega_k_capped(B, k)} batches of {B}, "
+          f"one of mixed lengths with two flagged queries, one host-hashed) "
+          f"in {groups_s:.1f} s")
+    print(f"phase 11 full ranking, floor 0.8 (half the clients at 0.52): "
+          f"{n_full / full_wall:.0f} q/s served, {full_hits:.0f} results "
+          f"per query on average, {full_st['batches']} batches, "
+          f"{full_st['subfloor_batches']} sub-floor, "
+          f"{full_st['mega_dispatches']} groups; p50 "
+          f"{full_st.get('lat_p50_ms')} ms, p99 {full_st.get('lat_p99_ms')} "
+          "ms; every response == Search.search_batch's")
+    print(f"phase 11 streamed (device scoring): {n_full / st_wall:.0f} q/s "
+          f"served over {conns * 128} queries, {st_st['batches']} batches, "
+          f"{st_st['mega_dispatches']} groups; p50 {st_st.get('lat_p50_ms')} "
+          f"ms, p99 {st_st.get('lat_p99_ms')} ms; responses == the held "
+          "path's")
+    print(f"phase 11 reload at full width: {reload_s:.2f} s (the card held "
+          "both sets meanwhile); responses after it unchanged")
+    return {"launches": on["launches"], "batches": on["stats"]["batches"]}
+
+
 def main() -> int:
     import torch
 
@@ -1350,7 +1757,9 @@ def main() -> int:
     from cobs_tpu_torch.ops import dma_gather as dg
     from cobs_tpu_torch.ops import query_kernel as qk
     from cobs_tpu_torch.query import engine
+    from cobs_tpu_torch.query.client import QueryClient
     from cobs_tpu_torch.query.search import Search
+    from cobs_tpu_torch.query.server import QueryServer
     from cobs_tpu_torch.settings import settings
 
     card = subprocess.run(
@@ -1414,17 +1823,25 @@ def main() -> int:
     phase_construct_edges(torch, cs, build_batch_matrix_device)
     phase_construct_golden(torch, cs, cli_main)
     con = phase_construct(torch, cs, card)
+    torch.cuda.empty_cache()
+
+    phase_serve_cli(QueryClient)
+    served = phase_serve(torch, qk, dh, engine, Search, QueryServer,
+                         QueryClient, settings, card)
 
     entries = {
         "gather_and_count": dict(
             launches=ref["launches"]["gather_and_count"], max_abs_err=err,
             library_ms=None,
             streamed_launches=streamed["launches"]["gather_and_count"],
-            **ref["k1"]),
+            served_launches=served["launches"][0],
+            served_batches=served["batches"], **ref["k1"]),
         "rows_from_queries": dict(
             launches=ref["launches"]["rows_from_queries"], max_abs_err=0,
             library_ms=None,
             streamed_launches=streamed["launches"]["rows_from_queries"],
+            served_launches=served["launches"][1],
+            served_batches=served["batches"],
             control_ms=hash5["phase 3"]["control_ms"], **ref["hash"]),
         "dma_gather_rows": dict(
             launches=k2_launches, max_abs_err=0, ms=k2["ms"],

@@ -11,8 +11,10 @@ k-mers on the device (`ops/csrc/device_hash.cu`), and runs the fused
 gather -> AND -> count in another kernel (`ops/csrc/gather_count.cu`);
 the kernels are built with nvcc at first use. On CPU tensors each
 kernel's plain PyTorch version runs instead. Indexes larger than the
-device budget are served from a host mmap (`StreamedIndex`). This package
-imports torch and numpy, never jax or cobs_tpu.
+device budget are served from a host mmap (`StreamedIndex`).
+`QueryServer` (`cobs serve`) keeps indexes on the card and answers
+`QueryClient`s over a socket, packing deep queues into one launch of each
+kernel. This package imports torch and numpy, never jax or cobs_tpu.
 """
 
 from cobs_tpu_torch.construct.classic import (
@@ -37,8 +39,10 @@ from cobs_tpu_torch.ingest.document_list import (
     DocumentList,
     FileType,
 )
+from cobs_tpu_torch.query.client import QueryClient
 from cobs_tpu_torch.query.engine import DeviceIndex, StreamedIndex
 from cobs_tpu_torch.query.search import QueryError, Search, SearchResult
+from cobs_tpu_torch.query.server import QueryServer
 from cobs_tpu_torch.settings import disable_cache, settings
 
 __all__ = [
@@ -48,7 +52,9 @@ __all__ = [
     "DocumentEntry",
     "DocumentList",
     "FileType",
+    "QueryClient",
     "QueryError",
+    "QueryServer",
     "Search",
     "SearchResult",
     "StreamedIndex",

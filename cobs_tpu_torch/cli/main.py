@@ -1,5 +1,5 @@
 """`cobs` command line of the PyTorch port: the document tools, index
-construction, `query` and `benchmark-fpr`.
+construction, `query`, `benchmark-fpr` and `serve`.
 
 Same flags, defaults and output as those subtools in cobs_tpu/cli/main.py
 (reference: src/cobs.cpp:970-1016), plus `--device` where a command uses
@@ -23,6 +23,10 @@ the device:
         (QUERY | -f QUERIES.fa)
     python -m cobs_tpu_torch.cli.main benchmark-fpr INDEX [-q 10000] \\
         [-k 1000] [-b 64] [-l 0] [--streamed] [--cold] [--device cuda]
+    python -m cobs_tpu_torch.cli.main serve -i INDEX [--socket PATH | \\
+        --host H --port 7687] [-t 0.8] [-l 0] [-b 64] [--linger-ms 2] \\
+        [--warmup LEN] [--log-interval S] [--stall-timeout 300] \\
+        [--slo-ms MS] [--streamed | --load-complete] [--device cuda]
 
 Construction sets the Bloom bits on the device (the bit scatter kernel on
 a CUDA card; `--device cpu` runs its plain version); `--device-construct`
@@ -456,6 +460,106 @@ def cmd_benchmark_fpr(argv):
     return 0
 
 
+def cmd_serve(argv):
+    """The resident batching query server (query/server.py): the index
+    stays on the card and client queries coalesce into device batches.
+    SIGTERM drains queued requests and the batches in flight, removes a
+    Unix socket file and exits 0."""
+    p = argparse.ArgumentParser(prog="cobs serve")
+    p.add_argument("-i", "--index", action="append", default=[],
+                   help="path to index file(s)")
+    p.add_argument("--socket", default="", metavar="PATH",
+                   help="serve on a Unix domain socket at PATH")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=7687,
+                   help="TCP port (used when --socket is not given), "
+                        "default: 7687")
+    p.add_argument("-t", "--threshold", type=float, default=0.8,
+                   help="server score floor, default: 0.8 (requests "
+                        "above it are fast prefix cuts; below it, the "
+                        "batch re-ranks at the lower threshold)")
+    p.add_argument("-l", "--limit", type=int, default=0,
+                   help="top-k serving mode: cap results per query "
+                        "on the device, default: 0 = full ranking")
+    p.add_argument("-b", "--batch", type=int, default=64,
+                   help="max queries coalesced per device batch")
+    p.add_argument("--linger-ms", type=float, default=2.0,
+                   help="batching window after the first query of a "
+                        "batch arrives, default: 2 ms")
+    p.add_argument("--warmup", type=int, default=0, metavar="LEN",
+                   help="build and load the kernels and run one batch "
+                        "of LEN-character queries before accepting "
+                        "clients")
+    p.add_argument("--log-interval", type=float, default=0.0,
+                   metavar="SECS",
+                   help="print a RESULT throughput/counter line every "
+                        "SECS seconds (0 = off)")
+    p.add_argument("--stall-timeout", type=float, default=300.0,
+                   metavar="SECS",
+                   help="liveness breaker: when the scoring pipeline "
+                        "makes no progress for SECS, answer NEW queries "
+                        "with an error instead of queueing them; "
+                        "default: 300, 0 disables")
+    p.add_argument("--slo-ms", type=float, default=0.0, metavar="MS",
+                   help="p99 latency target: adaptively cap the deep-"
+                        "queue multi-batch group size (and the linger) "
+                        "so tail latency stays under MS; default: 0 = "
+                        "throughput mode")
+    p.add_argument("--load-complete", action="store_true",
+                   help="load the whole index onto the device, whatever "
+                        "its size")
+    p.add_argument("--streamed", action="store_true",
+                   help="serve the index from a host mmap")
+    _add_threads_flag(p)
+    _add_device_flag(p, "holding the index")
+    args = p.parse_args(argv)
+    _apply_threads(args)
+    if not args.index:
+        print("Pass at least one -i index.", file=sys.stderr)
+        return -1
+
+    import signal
+
+    from cobs_tpu_torch.query.search import Search
+    from cobs_tpu_torch.query.server import QueryServer
+
+    def factory(paths=None):
+        # --streamed wins over --load-complete, as in cobs_tpu
+        return Search(list(paths) if paths else args.index,
+                      device=args.device,
+                      streamed=(True if args.streamed
+                                else False if args.load_complete
+                                else None))
+
+    server = QueryServer(
+        factory(), unix_path=args.socket or None, host=args.host,
+        port=args.port, batch_size=args.batch,
+        linger_ms=args.linger_ms, threshold=args.threshold,
+        num_results=args.limit, search_factory=factory,
+        stall_timeout=args.stall_timeout, slo_ms=args.slo_ms)
+    if args.warmup:
+        server.warmup(args.warmup)
+        print(f"WARM query_len={args.warmup}", flush=True)
+    addr = server.address
+    addr = addr if isinstance(addr, str) else f"{addr[0]}:{addr[1]}"
+    print(f"SERVING {addr} floor_t={args.threshold} "
+          f"limit={args.limit} batch={args.batch} "
+          f"linger_ms={args.linger_ms}", flush=True)
+
+    def _graceful(signum, frame):
+        # drain queued requests and the batches in flight, then exit 0
+        raise KeyboardInterrupt
+
+    signal.signal(signal.SIGTERM, _graceful)
+    try:
+        server.serve_forever(log_interval=args.log_interval)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.close()
+    return 0
+
+
 def _cold_mode(cold: bool) -> str:
     """How the RESULT line's run was kept cold: on-dontcache when the
     reads bypassed the page cache (RWF_DONTCACHE, the reference's
@@ -488,6 +592,7 @@ SUBTOOLS = {
     "query": (cmd_query, "query an index"),
     "benchmark-fpr": (cmd_benchmark_fpr,
                       "run a query benchmark over random queries"),
+    "serve": (cmd_serve, "run a resident batching query server"),
 }
 
 

@@ -8,9 +8,10 @@ mod of construction (`window_rows`, which takes the sequence path for
 sliding-window views, `window_hashes`), the random-document rows of
 `classic_construct_random` (`random_rows`), the host bit scatter
 (`set_bits`), the threaded scattered row copy (`gather_rows`), the host
-gather/AND/expand-add scorer (`score_batch_host`) and the io_uring row
+gather/AND/expand-add scorer (`score_batch_host`), the io_uring row
 gather of cold-cache serving (`gather_rows_file`, `uring_supported`,
-`dontcache_supported`). The
+`dontcache_supported`) and the query server's JSON result serializer
+(`ResultFormatter`). The
 first call of any of them compiles the source into
 `cobs_tpu_torch/_build/` (listed in `.gitignore`), named by a hash of
 the source, the flags and, for `-march=native`, this machine's CPU
@@ -124,6 +125,8 @@ def lib() -> ctypes.CDLL:
             L.cobs_gather_rows_file.argtypes = [i32, i64, i64, p, i64, p,
                                                 i64, i32, i32]
             L.cobs_gather_rows_file.restype = i32
+            L.cobs_format_results.argtypes = [p, p, p, p, i64, p, i64]
+            L.cobs_format_results.restype = i64
             _lib = L
         return _lib
 
@@ -347,3 +350,45 @@ def gather_rows_file(path, base_off: int, row_bytes: int, rows, out,
     if dontcache:
         _dontcache_ok = rc == 0
     return True
+
+
+class ResultFormatter:
+    """JSON serializer of ranked result lists (`cobs_format_results`), the
+    query server's response hot path: json.dumps of a 100-result
+    response holds the GIL for tens of microseconds, this call a few and
+    without the GIL. Holds the index set's document names JSON-quoted in
+    one blob, so build one per index set; calls are thread-safe (the
+    server renders on each connection's writer thread). The library is
+    built on construction, which raises if it cannot be built: there is
+    no json.dumps fallback.
+
+    __call__(gidx, scores) -> the fragment [["name",score],...] as bytes,
+    byte for byte cobs_tpu's."""
+
+    def __init__(self, names):
+        import json
+
+        quoted = [json.dumps(n).encode() for n in names]
+        self._blob = np.frombuffer(b"".join(quoted) or b"\0", np.uint8)
+        self._offs = np.zeros(len(quoted) + 1, dtype=np.int64)
+        np.cumsum([len(q) for q in quoted], out=self._offs[1:])
+        self._max_name = max((len(q) for q in quoted), default=0)
+        self._lib = lib()
+
+    def __call__(self, gidx, scores) -> bytes:
+        gidx = np.ascontiguousarray(gidx, dtype=np.int64)
+        scores = np.ascontiguousarray(scores, dtype=np.int64)
+        n = gidx.size
+        if scores.size != n:
+            raise ValueError(f"{n} documents and {scores.size} scores")
+        if n and (int(gidx.min()) < 0
+                  or int(gidx.max()) >= len(self._offs) - 1):
+            raise ValueError("document ids outside the formatter's names")
+        cap = 2 + n * (26 + self._max_name)
+        buf = np.empty(cap, dtype=np.uint8)  # per call: thread-safe
+        w = self._lib.cobs_format_results(
+            self._blob.ctypes.data, self._offs.ctypes.data,
+            gidx.ctypes.data, scores.ctypes.data, n, buf.ctypes.data, cap)
+        if w < 0:
+            raise RuntimeError("cobs_format_results: buffer too small")
+        return buf[:w].tobytes()

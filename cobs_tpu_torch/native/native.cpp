@@ -2,7 +2,8 @@
 // (canonicalization -> XXH64 -> Bloom row ids, the host bit scatter, the
 // random-document generator), and the streamed (host-mmap) backend's
 // threaded scattered row gather, host gather/AND/expand-add scorer and
-// io_uring row gather of cold-cache serving.
+// io_uring row gather of cold-cache serving, and the query server's JSON
+// result formatter.
 //
 // A copy of those parts of cobs_tpu/native/native.cpp (the port never
 // imports cobs_tpu, whose package imports jax), so both packages hash,
@@ -659,6 +660,43 @@ void cobs_score_batch(const uint8_t* base, int64_t row_bytes,
         pool.emplace_back(work, lo, hi);
     }
     for (auto& th : pool) th.join();
+}
+
+// Serialize a ranked result list as the serving protocol's JSON fragment
+// [["name",score],...]. `blob` holds the index's document names already
+// JSON-quoted back to back (offs[i]..offs[i+1] delimits name i, quotes
+// included), so the loop is memcpy and integer formatting, off the GIL.
+// Returns the bytes written, or -1 if `cap` is too small.
+int64_t cobs_format_results(const uint8_t* blob, const int64_t* offs,
+                            const int64_t* gidx, const int64_t* scores,
+                            int64_t n, uint8_t* out, int64_t cap) {
+    int64_t w = 0;
+    if (cap < 2) return -1;
+    out[w++] = '[';
+    for (int64_t i = 0; i < n; ++i) {
+        int64_t g = gidx[i];
+        int64_t name_len = offs[g + 1] - offs[g];
+        // worst case: ,["name",-9223372036854775808]
+        if (w + name_len + 26 > cap) return -1;
+        if (i) out[w++] = ',';
+        out[w++] = '[';
+        std::memcpy(out + w, blob + offs[g],
+                    static_cast<size_t>(name_len));
+        w += name_len;
+        out[w++] = ',';
+        int64_t v = scores[i];
+        if (v < 0) { out[w++] = '-'; }
+        uint64_t u = v < 0 ? static_cast<uint64_t>(-(v + 1)) + 1
+                           : static_cast<uint64_t>(v);
+        char tmp[20];
+        int t = 0;
+        do { tmp[t++] = static_cast<char>('0' + u % 10); u /= 10; }
+        while (u);
+        while (t) out[w++] = static_cast<uint8_t>(tmp[--t]);
+        out[w++] = ']';
+    }
+    out[w++] = ']';
+    return w;
 }
 
 }  // extern "C"

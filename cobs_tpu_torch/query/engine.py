@@ -25,6 +25,9 @@ row ids by `DeviceIndex.row_indices` and uploaded).
 `score_batch_async` / `score_topk_async` enqueue that work and return a
 `PendingScores` / `PendingTopK` whose `fetch()` is the only point that
 waits on the device; `score_batch` / `score_topk` fetch at once.
+`score_batch_multi_async` / `score_topk_multi_async` enqueue K batches as
+one payload (one upload and one launch of each kernel) and return one
+pending handle per batch, all sharing one fetch.
 
 A `StreamedIndex` keeps the payload in a host mmap instead, for indexes
 larger than the device budget (`settings.max_device_index_bytes`): each
@@ -637,15 +640,36 @@ def _gather_count(index: DeviceIndex, payload) -> torch.Tensor:
     return gather_and_count(index.matrix, rows, index.num_hashes)
 
 
-class PendingScores:
-    """A dispatched score batch; fetch() copies it to the host, then runs
-    `after` (a streamed index's page-cache eviction) if one is given."""
+class _SharedFetch:
+    """One device-to-host copy of a dispatched tensor, shared by the
+    pending handles of its batches: the first fetch waits for the device
+    and copies the whole tensor once, the others slice that copy."""
 
-    __slots__ = ("_dev", "_B", "_lay", "_after")
+    __slots__ = ("_dev", "_host")
 
-    def __init__(self, dev: torch.Tensor, B: int, layout: DocLayout,
-                 after=None):
+    def __init__(self, dev: torch.Tensor):
         self._dev = dev
+        self._host = None
+
+    def get(self) -> np.ndarray:
+        if self._host is None:
+            self._host = self._dev.cpu().numpy()
+            self._dev = None
+        return self._host
+
+
+class PendingScores:
+    """A dispatched score batch: rows lo:lo + B of a shared fetch (all of
+    it for a single batch; one batch's slice under multi-batch dispatch).
+    fetch() copies it to the host, then runs `after` (a streamed index's
+    page-cache eviction) if one is given."""
+
+    __slots__ = ("_src", "_lo", "_B", "_lay", "_after")
+
+    def __init__(self, src: _SharedFetch, lo: int, B: int,
+                 layout: DocLayout, after=None):
+        self._src = src
+        self._lo = lo
         self._B = B
         self._lay = layout
         self._after = after
@@ -653,28 +677,33 @@ class PendingScores:
     def fetch(self) -> np.ndarray:
         """int32 [B, counts_size]: the score_batch contract. Waits for
         the device."""
-        out = _strip_word_padding(self._dev.cpu().numpy(), self._B,
-                                  self._lay)
+        out = _strip_word_padding(
+            self._src.get()[self._lo:self._lo + self._B], self._B,
+            self._lay)
         if self._after is not None:
             self._after()
         return out
 
 
 class PendingTopK:
-    """A dispatched top-k batch; fetch() copies it to the host, then runs
-    `after` if one is given."""
+    """A dispatched top-k batch: rows lo:lo + B of a shared fetch of
+    int64 [2, N, k] (scores, then slots). fetch() copies it to the host,
+    then runs `after` if one is given."""
 
-    __slots__ = ("_dev", "_lay", "_after")
+    __slots__ = ("_src", "_lo", "_B", "_lay", "_after")
 
-    def __init__(self, dev: torch.Tensor, layout: DocLayout, after=None):
-        self._dev = dev   # int64 [2, B, k]: scores, then slots
+    def __init__(self, src: _SharedFetch, lo: int, B: int,
+                 layout: DocLayout, after=None):
+        self._src = src
+        self._lo = lo
+        self._B = B
         self._lay = layout
         self._after = after
 
     def fetch(self):
         """(scores i32 [B, k], doc_numbers i64 [B, k]): the score_topk
         contract. Waits for the device."""
-        vals, slots = self._dev.cpu().numpy()
+        vals, slots = self._src.get()[:, self._lo:self._lo + self._B]
         if self._after is not None:
             self._after()
         return vals.astype(np.int32), _slot_doc_numbers(slots, self._lay)
@@ -704,16 +733,79 @@ class PendingHost:
         return out
 
 
+def _concat_payloads(index, payloads: list):
+    """One payload holding the queries of K batches in order: QueryBytes
+    rows padded to the longest row (terms past a query's length stay at
+    the zero row, so every query scores as it would alone), or the
+    per-query host hashes one after another."""
+    if len(payloads) == 1:
+        return payloads[0]
+    if not isinstance(payloads[0], QueryBytes):
+        return [hashes for p in payloads for hashes in p]
+    for p in payloads:
+        if p.packed is None:
+            prepack_query_bytes(index, p)
+    L = max(p.packed.shape[1] for p in payloads)
+    out = QueryBytes([q for p in payloads for q in p.queries])
+    if all(p.packed.shape[1] == L for p in payloads):
+        out.packed = np.concatenate([p.packed for p in payloads])
+    else:
+        out.packed = np.full((len(out), L), ord("A"), dtype=np.uint8)
+        lo = 0
+        for p in payloads:
+            out.packed[lo:lo + len(p), :p.packed.shape[1]] = p.packed
+            lo += len(p)
+    # a flagged query keeps its length 0 (every term at the zero row)
+    out.lens = np.concatenate([p.lens for p in payloads])
+    return out
+
+
+def _offsets(payloads: list) -> list[int]:
+    """First row of each batch in the concatenated payload."""
+    return np.cumsum([0] + [len(p) for p in payloads[:-1]]).tolist()
+
+
+def score_batch_multi_async(index: DeviceIndex, payloads: list,
+                            timer: Timer | None = None
+                            ) -> list[PendingScores]:
+    """Enqueue the scoring of K batches (each a QueryBytes or per-query
+    host hashes, all of one kind) as one: one upload, one launch of the
+    hash kernel (device hashing) and one of the gather-and-count kernel
+    over the K * B queries. Returns one PendingScores per batch; they
+    share one fetch, so the first waits for the whole group and the rest
+    slice its copy. cobs_tpu runs a lax.scan over the stacked batches
+    instead (cobs_tpu/query/engine.py:2017)."""
+    if timer:
+        timer.active("io")
+    scores = _gather_count(index, _concat_payloads(index, payloads))
+    if timer:
+        timer.stop()
+    src, lay = _SharedFetch(scores), index.doc_layout
+    return [PendingScores(src, lo, len(p), lay)
+            for lo, p in zip(_offsets(payloads), payloads)]
+
+
+def score_topk_multi_async(index: DeviceIndex, payloads: list, k: int,
+                           timer: Timer | None = None) -> list[PendingTopK]:
+    """score_batch_multi_async with one top-k over the K * B score rows:
+    one PendingTopK per batch, sharing one fetch of [2, K * B, k]."""
+    if timer:
+        timer.active("io")
+    scores = _gather_count(index, _concat_payloads(index, payloads))
+    vals, slots = topk_slots(scores, index.valid_mask,
+                             min(k, scores.shape[1]))
+    if timer:
+        timer.stop()
+    src, lay = _SharedFetch(torch.stack((vals, slots))), index.doc_layout
+    return [PendingTopK(src, lo, len(p), lay)
+            for lo, p in zip(_offsets(payloads), payloads)]
+
+
 def score_batch_async(index: DeviceIndex, payload,
                       timer: Timer | None = None) -> PendingScores:
     """Enqueue the scoring of a batch (QueryBytes or per-query host
     hashes) without waiting for the device."""
-    if timer:
-        timer.active("io")
-    scores = _gather_count(index, payload)
-    if timer:
-        timer.stop()
-    return PendingScores(scores, len(payload), index.doc_layout)
+    return score_batch_multi_async(index, [payload], timer)[0]
 
 
 def score_batch(index: DeviceIndex, payload,
@@ -799,14 +891,7 @@ def score_topk_async(index: DeviceIndex, payload, k: int,
                      timer: Timer | None = None) -> PendingTopK:
     """Enqueue top-k scoring without waiting for the device; fetch()
     gives the score_topk contract."""
-    if timer:
-        timer.active("io")
-    scores = _gather_count(index, payload)
-    vals, slots = topk_slots(scores, index.valid_mask,
-                             min(k, scores.shape[1]))
-    if timer:
-        timer.stop()
-    return PendingTopK(torch.stack((vals, slots)), index.doc_layout)
+    return score_topk_multi_async(index, [payload], k, timer)[0]
 
 
 def score_topk(index: DeviceIndex, payload, k: int,
@@ -1123,9 +1208,9 @@ class StreamedIndex(_PageLayout):
             return PendingHost(self._pool().submit(self._host_scores,
                                                    payload, wt),
                                self._after_score(), wt, timer)
-        return PendingScores(self._device_scores(payload, timer),
-                             len(payload), self.doc_layout,
-                             self._after_score())
+        scores = self._device_scores(payload, timer)
+        return PendingScores(_SharedFetch(scores), 0, len(payload),
+                             self.doc_layout, self._after_score())
 
     def score_topk_async(self, payload, k: int, timer: Timer | None = None):
         """Dispatch top-k scoring without waiting; fetch() gives the
@@ -1141,7 +1226,8 @@ class StreamedIndex(_PageLayout):
         scores = self._device_scores(payload, timer)
         vals, slots = topk_slots(scores, self.valid_mask,
                                  min(k, scores.shape[1]))
-        return PendingTopK(torch.stack((vals, slots)), self.doc_layout,
+        return PendingTopK(_SharedFetch(torch.stack((vals, slots))), 0,
+                           len(payload), self.doc_layout,
                            self._after_score())
 
     def score_batch(self, payload, timer: Timer | None = None) -> np.ndarray:

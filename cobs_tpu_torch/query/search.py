@@ -11,8 +11,11 @@ device. Mirrors the observable semantics of the reference `ClassicSearch`
 - auto-detects classic vs compact files from the header.
 
 `search_batch` scores many queries in one kernel launch per index;
-`search_stream` is the serving loop over an iterable of queries. Query
-hashing runs on the index's device by default (settings.device_hash).
+`search_stream` is the serving loop over an iterable of queries, which
+packs groups of batches into one launch of each kernel on device-held
+indexes (multi-batch dispatch; `query/server.py` serves the same way).
+Query hashing runs on the index's device by default
+(settings.device_hash).
 Index files above settings.max_device_index_bytes are served by the
 streamed backend (`StreamedIndex`), which a federation may mix with
 device-held indexes.
@@ -41,7 +44,9 @@ from cobs_tpu_torch.query.engine import (
     prepack_query_bytes,
     resolve_device,
     score_batch_async,
+    score_batch_multi_async,
     score_topk_async,
+    score_topk_multi_async,
 )
 from cobs_tpu_torch.settings import settings
 from cobs_tpu_torch.utils.timer import Timer
@@ -56,9 +61,13 @@ from cobs_tpu_torch.utils.timer import Timer
 #: thread cost ~0.7 ms per 64-query batch of GIL and wake-up waits on the
 #: H100 machine (experiments/stream_overlap.py), so it runs inline (0).
 _HASH_AHEAD = {"host": 2, "device": 0}
-#: batches kept dispatched on the device while the oldest is fetched and
-#: ranked
+#: batches (groups of batches under multi-batch dispatch) kept dispatched
+#: on the device while the oldest is fetched and ranked
 _DEPTH = 2
+#: device bytes one full-ranking multi-batch group may hold in scores
+#: until it is fetched ([K * B, slots] int32; search_stream keeps _DEPTH
+#: groups and the next one in flight)
+_MEGA_FULLRANK_BYTES = 256 << 20
 
 
 def _open_index(path, device, streamed=None):
@@ -168,6 +177,44 @@ class ResultList:
 
     def __repr__(self):
         return repr(list(self))
+
+    def pairs(self) -> list:
+        """[[doc_name, score], ...] (the serving JSON shape) without a
+        SearchResult per document."""
+        names = self._names
+        return [[names[g], s] for g, s in
+                zip(self._gidx.tolist(), self._scores.tolist())]
+
+    def cut(self, min_score=None, limit=None) -> "ResultList":
+        """Prefix-refine an already-ranked list: scores descend in the
+        reference's tie order, so a higher score floor and a smaller cap
+        are both prefix cuts (the server ranks a batch once at its floor
+        and refines per request)."""
+        n = len(self._gidx)
+        if min_score is not None and n:
+            n = int(np.searchsorted(-self._scores.astype(np.int64),
+                                    -int(min_score), side="right"))
+        if limit is not None:
+            n = min(n, int(limit))
+        return ResultList(self._names, self._gidx[:n], self._scores[:n])
+
+    def serialize_with(self, formatter) -> bytes:
+        """The JSON fragment [["name",score],...] from a native
+        `ResultFormatter` of the same names."""
+        return formatter(self._gidx, self._scores)
+
+    def cut_per_index(self, doc_bounds, min_scores) -> "ResultList":
+        """Refine with a score floor per source index: a federation of
+        mixed term sizes turns one fractional threshold into a different
+        minimum score per index (the per-index ceil(t * num_terms) of
+        `Search._finish_batch`). `doc_bounds` is the cumulative document
+        count per index; the filter keeps the order, so the reference's
+        tie order survives."""
+        if not len(self._gidx):
+            return self
+        idx_of = np.searchsorted(doc_bounds, self._gidx, side="right")
+        keep = self._scores >= np.asarray(min_scores, dtype=np.int64)[idx_of]
+        return ResultList(self._names, self._gidx[keep], self._scores[keep])
 
 
 class Search:
@@ -316,6 +363,52 @@ class Search:
         return [_score_async(ix, hashed[k], num_results, self.timer_)
                 for k, ix in enumerate(self.index_files)]
 
+    def _mega_k(self) -> int:
+        """Batches per multi-batch dispatch when the queue is deep
+        (settings.mega_batches; 1 = one dispatch per batch). Only when
+        every index is a DeviceIndex: a streamed batch's cost is its host
+        gather, which packing does not divide."""
+        if not all(isinstance(ix, DeviceIndex) for ix in self.index_files):
+            return 1
+        return max(1, int(settings.mega_batches))
+
+    def _mega_k_capped(self, batch_size: int, num_results: int) -> int:
+        """_mega_k with the full-ranking device budget: a full-ranking
+        group holds [K * B, slots] scores per index until it is fetched,
+        so the cap divides _MEGA_FULLRANK_BYTES by the sum of the
+        indexes' slot widths. The scores are int32, 4 bytes a slot
+        (cobs_tpu shrinks them to u16 for its slow link; the port does
+        not). Top-k groups hold only [K * B, k] and are never capped.
+        The one formula serves search_stream and QueryServer."""
+        mega = self._mega_k()
+        if mega > 1 and num_results == 0:
+            slots = sum(ix.word_width * 32 * ix.num_pages
+                        for ix in self.index_files)
+            mega = max(1, min(mega, _MEGA_FULLRANK_BYTES
+                              // max(1, slots * 4 * batch_size)))
+        return mega
+
+    def _dispatch_group_async(self, hashed_group, num_results) -> list:
+        """Multi-batch dispatch: K pre-hashed batches with one upload and
+        one launch of each kernel per index (engine.score_*_multi_async).
+        cobs_tpu splits a group into power-of-two runs to bound its
+        compiled shapes; the kernels here take the batch size at run
+        time, so a group goes whole. A group of one is `_dispatch_async`
+        (a streamed index only meets those: `_mega_k`). Returns one
+        pending list per batch, the contract of `_dispatch_async`, so
+        `_finish_batch` takes each unchanged."""
+        if len(hashed_group) == 1:
+            return [self._dispatch_async(hashed_group[0], num_results)]
+        per_index = []
+        for kx, ix in enumerate(self.index_files):
+            payloads = [hashed[kx] for hashed in hashed_group]
+            per_index.append(
+                score_topk_multi_async(ix, payloads, num_results,
+                                       self.timer_) if num_results > 0
+                else score_batch_multi_async(ix, payloads, self.timer_))
+        return [[pi[g] for pi in per_index]
+                for g in range(len(hashed_group))]
+
     def _finish_batch(self, qbytes, errors, pending, threshold,
                       num_results) -> list:
         """Fetch and rank one dispatched batch (pairs `_dispatch_async`).
@@ -363,8 +456,12 @@ class Search:
         (_HASH_AHEAD); the worker makes no CUDA call. The calling thread uploads,
         launches, fetches and ranks, and keeps a bounded window of
         dispatched batches on the device, so batch k's fetch and ranking
-        overlap batch k+1's kernels. Full ranking and top-k
-        (num_results > 0), one index or a federation.
+        overlap batch k+1's kernels. When every index is a DeviceIndex,
+        groups of up to `settings.mega_batches` consecutive batches
+        (`_mega_k_capped`) go to the device with one upload and one launch
+        of each kernel (`_dispatch_group_async`), and the window holds
+        whole groups. Full ranking and top-k (num_results > 0), one index
+        or a federation.
 
         Yields one ranked list per query, in order. An invalid query (too
         short, non-ACGT) yields a `QueryError` in its slot instead of
@@ -401,14 +498,27 @@ class Search:
                     hash_q.append(pool.submit(hash_next))
                     yield got
 
+        mega = self._mega_k_capped(batch_size, num_results)
         inflight = collections.deque()
+        ready = []   # hashed batches waiting for their group's dispatch
+
+        def flush():
+            pendings = self._dispatch_group_async([h for _, h, _ in ready],
+                                                  num_results)
+            for (qbytes, _, errors), pending in zip(ready, pendings):
+                inflight.append((qbytes, errors, pending))
+            ready.clear()
+
         for qbytes, hashed, errors, t in hashed_batches():
             self.timer_.merge(t)
-            inflight.append((qbytes, errors,
-                             self._dispatch_async(hashed, num_results)))
-            while len(inflight) > _DEPTH:
+            ready.append((qbytes, hashed, errors))
+            if len(ready) >= mega:
+                flush()
+            while len(inflight) > _DEPTH * mega:
                 yield from self._finish_batch(*inflight.popleft(),
                                               threshold, num_results)
+        if ready:
+            flush()
         while inflight:
             yield from self._finish_batch(*inflight.popleft(), threshold,
                                           num_results)

@@ -4,9 +4,10 @@ A subset of `cobs_tpu.settings` (reference: cobs/settings.hpp:16-23):
 the device that holds the index and runs construction's bit scatter, the
 host worker threads, whether document caches are written, when an index
 is streamed from host mmap instead of held on the device, where the
-streamed backend scores, and where query hashing runs. The TPU package's
-dispatch knobs (mega-dispatch, hash-ahead depth, dispatch groups, tier
-fetch) worked around its slow host link and have no counterpart here.
+streamed backend scores, where query hashing runs, and how many batches
+one multi-batch dispatch packs. The TPU package's other dispatch knobs
+(hash-ahead depth, dispatch groups, tier fetch) worked around its slow
+host link and have no counterpart here.
 """
 
 import dataclasses
@@ -47,6 +48,14 @@ class Settings:
     device_hash: str = dataclasses.field(default_factory=lambda: os.environ
                                          .get("COBS_TPU_DEVICE_HASH",
                                               "auto"))
+    #! multi-batch dispatch ceiling: when the server's queue or a query
+    #! stream is deep, up to this many batches go to the device as one
+    #! payload (one upload, one launch of the hash kernel, of the
+    #! gather-and-count kernel and of the top-k), dividing the host's
+    #! per-batch dispatch and fetch cost; 1 disables. Applies when every
+    #! index is a DeviceIndex.
+    mega_batches: int = dataclasses.field(default_factory=lambda: int(
+        os.environ.get("COBS_TPU_MEGA_BATCHES", "16")))
 
 
 settings = Settings()

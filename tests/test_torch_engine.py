@@ -188,3 +188,50 @@ def test_from_arrays_takes_numpy_and_torch(rng):
     assert a.counts_size == 16 and a.zero_row == 8
     with pytest.raises(ValueError):
         teng.DeviceIndex.from_arrays(m[:, :64], **common)
+
+
+@pytest.mark.parametrize("kind", ["classic_h3", "compact_run_coalesced"])
+@pytest.mark.parametrize("device_hash", [True, False])
+def test_multi_batch_dispatch_equals_single_batches(built, rng, monkeypatch,
+                                                    kind, device_hash):
+    """score_*_multi_async over K batches of different query lengths (one
+    query flagged with length 0, as Search's lenient hashing flags an
+    invalid query) calls each kernel once, and each batch's handle
+    fetches exactly what the batch alone gives, and cobs_tpu's scores."""
+    idx, seqs = built[kind]
+    jix = jeng.DeviceIndex.from_file(idx)
+    tix = teng.DeviceIndex.from_file(idx, device="cpu")
+    batches = [_queries(seqs, rng), [seqs[3][:40], seqs[5][7:400]],
+               [BASES[rng.integers(0, 4, size=33)].tobytes()]]
+    hashes = [teng.create_hashes(b, tix.term_size, tix.num_hashes,
+                                 tix.canonicalize) for b in batches]
+
+    def payloads():
+        if not device_hash:
+            return hashes
+        out = []
+        for b in batches:
+            qb = teng.QueryBytes(b)
+            teng.prepack_query_bytes(tix, qb)
+            out.append(qb)
+        out[0].lens[1] = 0    # a flagged query: every term at the zero row
+        return out
+
+    calls = []
+    k1 = teng.gather_and_count
+    monkeypatch.setattr(teng, "gather_and_count",
+                        lambda *a: calls.append(1) or k1(*a))
+    multi = teng.score_batch_multi_async(tix, payloads())
+    multi_k = teng.score_topk_multi_async(tix, payloads(), 5)
+    assert len(calls) == 2 and len(multi) == len(multi_k) == 3
+    for g, (p, pk) in enumerate(zip(multi, multi_k)):
+        alone = payloads()[g]
+        want = teng.score_batch(tix, alone)
+        np.testing.assert_array_equal(p.fetch(), want)
+        for a, b in zip(pk.fetch(), teng.score_topk(tix, alone, 5)):
+            np.testing.assert_array_equal(a, b)
+        jw = jeng.score_batch(jix, hashes[g])
+        if device_hash and g == 0:
+            assert not want[1].any()
+            want, jw = np.delete(want, 1, 0), np.delete(jw, 1, 0)
+        np.testing.assert_array_equal(want, jw)

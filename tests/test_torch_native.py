@@ -303,3 +303,39 @@ def test_set_bits_matches_cobs_tpu_and_numpy(jax_lib):
         native.set_bits(got, np.array([0], np.uint64), 8 * row_size)
     with pytest.raises(ValueError, match="writeable"):
         native.set_bits(got[:, :2], np.array([0], np.uint64), 0)
+
+
+#: document names a server must quote: quotes, backslashes, control
+#: characters, non-ASCII letters and a character outside the BMP
+FORMAT_NAMES = ['plain', 'with "quotes"', "back\\slash", "tab\there",
+                "nl\nand\x00nul\x1f", "café", "日本語", "emoji \U0001F9EC",
+                "", "x" * 300]
+
+
+@pytest.mark.parametrize("n", [0, 1, 37])
+def test_result_formatter_matches_cobs_tpu(n):
+    """The port's ResultFormatter gives cobs_tpu's bytes, and JSON that
+    loads to what json.dumps of the same pairs loads to; negative and
+    large scores included."""
+    import json
+
+    rng = np.random.default_rng(n)
+    names = FORMAT_NAMES * 3
+    gidx = rng.integers(0, len(names), size=n)
+    scores = rng.integers(-5, 1 << 40, size=n)
+    if n:
+        scores[0] = -(1 << 63)
+    got = native.ResultFormatter(names)(gidx, scores)
+    want = jax_native.ResultFormatter(names)(gidx, scores)
+    assert want is not None and got == want
+    pairs = [[names[g], int(s)] for g, s in zip(gidx, scores)]
+    assert json.loads(got) == json.loads(json.dumps(pairs))
+
+
+def test_result_formatter_rejects_unknown_documents():
+    f = native.ResultFormatter(["a", "b"])
+    assert f(np.array([1, 0]), np.array([3, 2])) == b'[["b",3],["a",2]]'
+    with pytest.raises(ValueError, match="outside"):
+        f(np.array([2]), np.array([1]))
+    with pytest.raises(ValueError, match="scores"):
+        f(np.array([0, 1]), np.array([1]))

@@ -20,7 +20,7 @@ import torch
 import cobs_tpu
 from cobs_tpu.cli.main import main as jax_main
 from cobs_tpu.settings import settings as jax_settings
-from cobs_tpu_torch import Search, StreamedIndex, settings
+from cobs_tpu_torch import QueryError, Search, StreamedIndex, settings
 from cobs_tpu_torch.cli.main import main as torch_main
 
 torch.set_num_threads(2)
@@ -244,3 +244,155 @@ def test_cmd_query_threads_flag(monkeypatch, capsys):
                        GOLDEN_QUERY]) == 0
     assert settings.threads == 3
     assert capsys.readouterr().out.splitlines()[0] == "sample1\t20"
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_result_list_refinements_match_cobs_tpu(seed):
+    """ResultList.pairs, cut and cut_per_index (the server's per-request
+    refinements) equal cobs_tpu's on the same ranked arrays."""
+    from cobs_tpu.query.search import ResultList as JaxResultList
+
+    from cobs_tpu_torch.query.search import ResultList
+
+    rng = np.random.default_rng(seed)
+    names = [f"doc{i}" for i in range(40)]
+    n = int(rng.integers(0, 41))
+    gidx = rng.permutation(40)[:n]
+    scores = rng.integers(0, 30, size=n)
+    order = np.lexsort((gidx, -scores))   # (score desc, doc asc)
+    g, sc = gidx[order].astype(np.int64), scores[order].astype(np.int64)
+    got, want = ResultList(names, g, sc), JaxResultList(names, g, sc)
+    assert got.pairs() == want.pairs()
+    for min_score in (None, 0, 5, 17, 31):
+        for limit in (None, 0, 1, 7, 100):
+            assert got.cut(min_score, limit).pairs() == \
+                want.cut(min_score, limit).pairs()
+    bounds = np.cumsum([13, 9, 18])
+    for mins in ([0, 0, 0], [5, 12, 1], [30, 30, 30]):
+        assert got.cut_per_index(bounds, mins).pairs() == \
+            want.cut_per_index(bounds, mins).pairs()
+
+
+GROUP_B, GROUP_THRESHOLD = 3, 0.2
+
+
+@pytest.fixture(scope="module")
+def group_case(corpus):
+    """48 queries (16 batches of 3) with two invalid ones, and cobs_tpu's
+    rankings of the valid ones per (index set, num_results)."""
+    rng = np.random.default_rng(17)
+    queries = [BASES[rng.integers(0, 4, size=n)].tobytes().decode()
+               for n in rng.integers(31, 120, size=16 * GROUP_B)]
+    queries[4:4 + len(corpus["queries"])] = corpus["queries"]
+    queries[2], queries[19] = "ACGT", "NACGT" * 10
+    sets = {"single": corpus["single"],
+            "compact": corpus["federation"][1:],
+            "federation": corpus["federation"]}
+    valid = [q for i, q in enumerate(queries) if i not in (2, 19)]
+    old = jax_settings.device_hash
+    jax_settings.device_hash = "host"
+    try:
+        want = {(which, nr): _pairs(cobs_tpu.Search(paths).search_batch(
+                    valid, GROUP_THRESHOLD, nr))
+                for which, paths in sets.items() for nr in (0, 3)}
+    finally:
+        jax_settings.device_hash = old
+    return queries, sets, want
+
+
+@pytest.mark.parametrize("K", [1, 2, 3, 7, 16])
+@pytest.mark.parametrize("which", ["single", "compact", "federation"])
+@pytest.mark.parametrize("num_results", [0, 3])
+@pytest.mark.parametrize("hashing", ["device", "host"])
+def test_dispatch_group_matches_per_batch_and_cobs_tpu(
+        group_case, monkeypatch, K, which, num_results, hashing):
+    """_dispatch_group_async over K batches launches the gather-and-count
+    once per index, the whole group at K times the batch size, and ranks
+    exactly as one dispatch per batch and as cobs_tpu's search_batch;
+    invalid queries keep their error in their own slot."""
+    from cobs_tpu_torch.query import engine as teng
+
+    queries, sets, want = group_case
+    monkeypatch.setattr(settings, "device_hash", hashing)
+    s = Search(sets[which], device="cpu")
+    batches = [[q.encode() for q in queries[i:i + GROUP_B]]
+               for i in range(0, K * GROUP_B, GROUP_B)]
+    hashed = [s._hash_batch_lenient(b, s.timer_) for b in batches]
+    calls = []
+    k1 = teng.gather_and_count
+    monkeypatch.setattr(teng, "gather_and_count",
+                        lambda *a: calls.append(1) or k1(*a))
+    group = s._dispatch_group_async([h for h, _ in hashed], num_results)
+    assert len(calls) == len(s.index_files)
+    single = [s._dispatch_async(h, num_results) for h, _ in hashed]
+    got, alone = [], []
+    for b, (_, errors), pg, ps in zip(batches, hashed, group, single):
+        got += s._finish_batch(b, errors, pg, GROUP_THRESHOLD, num_results)
+        alone += s._finish_batch(b, errors, ps, GROUP_THRESHOLD,
+                                 num_results)
+    assert [isinstance(r, QueryError) for r in got] == \
+        [i in (2, 19) for i in range(K * GROUP_B)]
+    assert _pairs(got) == _pairs(alone)
+    valid = [r for i, r in enumerate(got) if i not in (2, 19)]
+    assert _pairs(valid) == want[which, num_results][:len(valid)]
+
+
+def test_mega_k_capped_binds_at_the_4_byte_budget(monkeypatch):
+    """Full-ranking groups hold [K * B, slots] int32 scores: the cap is
+    256 MB // (slots * 4 * B), never binding top-k; 1 for a streamed
+    index or mega_batches = 1."""
+    from cobs_tpu_torch import DeviceIndex
+    from cobs_tpu_torch.query import search as search_mod
+
+    def index(words, pages=1):
+        m = np.zeros((pages * 2 + 1, words), dtype=np.uint32)
+        return DeviceIndex.from_arrays(
+            m, np.arange(pages) * 2, [2] * pages, words, term_size=31,
+            canonicalize=1, num_hashes=1, page_size=words * 4,
+            file_names=["d"], device="cpu")
+
+    assert search_mod._MEGA_FULLRANK_BYTES == 256 << 20
+    # 8,192 words: 262,144 slots, 64 MB per batch of 64 at 4 bytes a slot
+    # (u16 would give 8)
+    s = Search(index(8192))
+    assert s._mega_k_capped(64, 0) == 4
+    assert s._mega_k_capped(64, 5) == 16
+    assert s._mega_k_capped(32, 0) == 8
+    assert s._mega_k_capped(1024, 0) == 1
+    # a federation sums its slot widths; phase 3's shape is not capped
+    assert Search([index(4096), index(2048, pages=2)]) \
+        ._mega_k_capped(64, 0) == 4
+    assert Search(index(384))._mega_k_capped(64, 0) == 16
+    monkeypatch.setattr(settings, "mega_batches", 2)
+    assert s._mega_k_capped(64, 0) == 2
+    monkeypatch.setattr(settings, "mega_batches", 1)
+    assert s._mega_k_capped(64, 5) == 1
+    monkeypatch.setattr(settings, "mega_batches", 16)
+    streamed = Search(str(GOLDEN["classic"]), device="cpu", streamed=True)
+    assert streamed._mega_k_capped(64, 5) == 1
+
+
+@pytest.mark.parametrize("which", ["single", "federation"])
+@pytest.mark.parametrize("num_results", [0, 3])
+@pytest.mark.parametrize("batch_size", [2, 5])
+def test_search_stream_mega_on_equals_off(group_case, corpus, monkeypatch,
+                                          which, num_results, batch_size):
+    """search_stream packs groups of batches when settings.mega_batches
+    > 1 and yields exactly what one dispatch per batch yields."""
+    queries = group_case[0]
+    s = Search(corpus[which], device="cpu")
+    groups = []
+    group = s._dispatch_group_async
+    monkeypatch.setattr(s, "_dispatch_group_async",
+                        lambda g, n: groups.append(len(g)) or group(g, n))
+    monkeypatch.setattr(settings, "mega_batches", 4)
+    on = list(s.search_stream(queries, 0.1, num_results, batch_size))
+    assert groups and max(groups) == 4
+    monkeypatch.setattr(settings, "mega_batches", 1)
+    groups.clear()
+    off = list(s.search_stream(queries, 0.1, num_results, batch_size))
+    assert groups and set(groups) == {1}
+    assert [isinstance(r, QueryError) for r in on] == \
+        [isinstance(r, QueryError) for r in off] == \
+        [i in (2, 19) for i in range(len(queries))]
+    assert _pairs(on) == _pairs(off)
