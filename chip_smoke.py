@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke test of the cobs_tpu_torch query and construction paths on one
-CUDA card.
+"""Smoke test of the cobs_tpu_torch query, construction and multi-device
+paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -111,7 +111,43 @@ torch.cuda.synchronize():
    queries, and host-hashed rows of a group of 16.
    Prints served q/s beside `search_stream`'s on the same queries,
    latency p50/p99, batches, groups, `Timer` phases, launches per batch,
-   the card's busy share while serving and the reload's seconds.
+   the card's busy share while serving and the reload's seconds;
+12. the document-sharded index (parallel/sharded.py) as four shards of
+   the one card (`make_mesh(..., [cuda:0] * 4)`: correctness and
+   per-shard cost, not scaling across cards). (a) Phase 3's matrix and
+   queries on a (1, 4) mesh (word_width 512, four 128-word shards) and
+   on a (2, 2) one: all 1,024 queries in batches of 64 through
+   `search_batch` and `search_stream` (one group), top 100 and full
+   ranking, each ranking equal to the single-device `Search`'s, with one
+   launch of K1 and of the hash kernel per cell per batch or group; on
+   (2, 2), 4 queries of 70,000 bp through the sequence split (K1 per
+   cell, no hash launch), full ranking and top 100. (b) K1 and the hash
+   kernel against their plain versions at one cell's shapes (W=128), and
+   the host merge of one batch's candidates, timed; then, exact, at every
+   other shape the main path gives them: the last cell's share of a
+   batch and of a search_stream group on each mesh (B=64 and 1,024 at
+   W=128; B=32 and 512 at W=256), and K1 on the sequence split's term
+   slice of a (2, 2) cell (B=4, about 35,000 terms, W=256). (c) Phase 9's file
+   written again from its seed and streamed into the 4 shards from its
+   mmap: rankings equal the held index's. (d) In phase 10, before its
+   corpus is deleted: the classic build over 4 docs shards
+   (settings.construct_mesh), byte-identical to phase 10's file, and the
+   scatter on a shard's words with foreign updates below and past its
+   documents through the binned plan, equal to its plain version. (e)
+   Two processes (gloo, file store), 2 shards each on the card: each
+   streams only its own shards of phase 9's file and scores 256 queries
+   (one exchange per batch), equal to the single-device rankings; then
+   `parallel.distributed.construct` and `open_federated` over a
+   20-document corpus, one device and the global mesh, equal to one
+   build; a failing child fails the phase. (f) `query --mesh 1` and
+   `serve --mesh 1` give the reference's lines; --mesh beyond the cards
+   exits non-zero. (g) `benchmark_scaling` over 1, 2 and 4 shards of the
+   one card at cobs_tpu's defaults but 1,000 batches per shard count,
+   run twice, with the spread of the two runs. (h) First of all, the
+   quick-check entry points: `parallel.dryrun.entry()`'s step against
+   K1's plain version, and `dryrun_multichip(4, [cuda:0] * 4)` (the
+   scatter and K1 on 8-word shards after the transpose, checked against
+   numpy, and the serving surface over a (2, 2) mesh).
 
 Prints the card's name and power limit, the build times, the times, then
 a JSON line of the kernels and, last, the device JSON line. Any failure
@@ -1357,10 +1393,12 @@ def _phase_construct(torch, cs, card, root: Path, lens) -> dict:
           f"time ({prof_kernel_us / 1e3 / max(prof_count, 1):.4f} ms per "
           f"launch) against an event interval of "
           f"{prof_phases.get('device_kernel', 0.0) * 1e3:.1f} ms")
+    sharded = phase_construct_sharded(torch, cs, card, root, k, h,
+                                      walls["classic", "device"])
     return {"launches": launches["classic"] + launches["compact"],
             "ms": kernel_ms, "plain_ms": timing["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "control_ms": timing["control_ms"]}
+            "control_ms": timing["control_ms"], "sharded": sharded}
 
 
 def sock_dir() -> Path:
@@ -1738,6 +1776,684 @@ def _phase_serve(torch, qk, dh, engine, Search, QueryServer, QueryClient,
     return {"launches": on["launches"], "batches": on["stats"]["batches"]}
 
 
+#: phase 12's shards, all on the one card
+SHARDS = 4
+#: batches per shard count in each of phase 12's two benchmark_scaling
+#: runs: about a second of scoring at 4 shards (cobs_tpu's default of 10
+#: took some 10 ms, too short to tell its runs apart)
+SCALING_ITERS = 1000
+
+
+def cuda0(torch, n: int) -> list:
+    return [torch.device("cuda", 0)] * n
+
+
+def phase_construct_sharded(torch, cs, card: str, root: Path, k: int,
+                            h: int, single_wall: float) -> dict:
+    """Phase 12 (d), on phase 10's corpus before it is deleted: the
+    classic build with settings.construct_mesh = 4 docs shards on the
+    card, byte-identical to phase 10's single-device file; then the
+    scatter on one shard's words, with foreign updates below and past
+    its documents, through the binned plan, against its plain version."""
+    import cobs_tpu_torch as ct
+    from cobs_tpu_torch.construct.bitmatrix import doc_row_indices
+    from cobs_tpu_torch.construct.device import UPDATE_CHUNK
+    from cobs_tpu_torch.experiments.dma_gather_bench import (
+        median_device_ms,
+    )
+    from cobs_tpu_torch.fmt.classic import read_classic_header
+    from cobs_tpu_torch.ingest.document_list import DocumentList
+    from cobs_tpu_torch.parallel.sharded import make_mesh
+
+    docs = root / "docs"
+    mesh = make_mesh(1, SHARDS, cuda0(torch, SHARDS))
+    old = ct.settings.construct_mesh
+    ct.settings.construct_mesh = mesh
+    try:
+        cs.LAUNCHES = 0
+        wall, stages = construct_timed(
+            ct.classic_construct, docs, root / "sharded.cobs_classic",
+            ct.ClassicIndexParameters(term_size=k, num_hashes=h,
+                                      false_positive_rate=0.3))
+        torch.cuda.synchronize()
+        launches = cs.LAUNCHES
+    finally:
+        ct.settings.construct_mesh = old
+    require(launches > 0, "the sharded build did not launch the scatter")
+    require(same_file(root / "sharded.cobs_classic",
+                      root / "device.cobs_classic"),
+            "the 4-shard classic build != phase 10's single-device file")
+    hdr = read_classic_header(root / "device.cobs_classic")
+    R1, n_docs = hdr.signature_size + 1, len(hdr.file_names)
+    Wl = -(-n_docs // (32 * SHARDS))
+
+    # one full chunk of real updates (the first documents' rows, in
+    # order), its documents moved to straddle the boundary of shards 0
+    # and 1 (global documents 252-...): shard 0 drops those past its
+    # 32 Wl documents, shard 1 those below its base
+    rows, docs_of = [], []
+    for d, entry in enumerate(DocumentList(docs).list()):
+        for w in entry.term_windows(k):
+            r = doc_row_indices(w, hdr.signature_size, h, 1)[0]
+            rows.append(r.astype(np.int32))
+            docs_of.append(np.full(r.size, d + 32 * Wl - 4, np.int32))
+        if sum(r.size for r in rows) >= UPDATE_CHUNK:
+            break
+    r = torch.from_numpy(np.concatenate(rows)[:UPDATE_CHUNK]).to(DEVICE)
+    d_glob = torch.from_numpy(
+        np.concatenate(docs_of)[:UPDATE_CHUNK]).to(DEVICE)
+    n = r.numel()
+    checks = {}
+    for shard in (0, 1):
+        d = d_glob - shard * 32 * Wl
+        plan = cs.plan_scatter(n, R1, Wl)
+        require(plan.binned, f"shard {shard}: {plan} is not binned")
+        words = torch.zeros((Wl, R1), dtype=torch.int32, device=DEVICE)
+        got = cs.construct_scatter(words.clone(), r, d, plan)
+        want = cs.construct_scatter_reference(words.clone(), r, d)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"construct_scatter on shard "
+                                        f"{shard}'s words with foreign "
+                                        "updates: kernel != plain")
+        ok = (d >= 0) & (d < 32 * Wl)
+        checks[shard] = (int((d < 0).sum()), int((d >= 32 * Wl).sum()),
+                         int(ok.sum()))
+        if shard == 1:
+            ms = median_device_ms(
+                torch, lambda i: cs.construct_scatter(words, r, d, plan))
+            plain_ms = median_device_ms(
+                torch, lambda i: cs.construct_scatter_reference(words, r,
+                                                                d), reps=3)
+            distinct = torch.unique(r[ok].long() * Wl
+                                    + (d[ok].long() >> 5)).numel()
+            bound_ms, bound_by = bound(8 * n + 8 * distinct, n)
+        del got, want
+    del r, d_glob, words
+    torch.cuda.empty_cache()
+    print(f"phase 12 construction on {SHARDS} docs shards of {card} (phase "
+          f"10's corpus, make_mesh(1, {SHARDS}, [cuda:0] * {SHARDS})): "
+          f"classic build {wall:.3f} s wall (phase 10's single-device "
+          f"build {single_wall:.3f} s), {launches} scatter launches, file "
+          f"byte-identical to phase 10's; stages: "
+          + " ".join(f"{p}={sec:.3f}s" for p, sec in stages.items())
+          + f"; words per shard [{Wl}, {R1}], "
+          f"{SHARDS * Wl * R1 * 4 / 1e9:.3f} GB "
+          "in all")
+    print(f"phase 12 construct_scatter on one shard's words [{Wl}, {R1}] "
+          f"with a full chunk of {n} updates straddling shards 0 and 1 "
+          f"(binned plan; shard 0: {checks[0][1]} past its end, shard 1: "
+          f"{checks[1][0]} below its base, dropped): kernel == plain on "
+          f"both; shard 1 {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}, {checks[1][2]} updates kept, "
+          f"{distinct} distinct words)")
+    return {"launches": launches, "wall": wall, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms}
+
+
+def phase_sharded(torch, qk, dh, engine, Search, QueryClient, settings,
+                  cli_main, card: str, rows: int = 1 << 21, B: int = 64,
+                  n_batches: int = 16) -> dict:
+    """Phase 12: the document-sharded index on one card; see the module
+    docstring."""
+    from cobs_tpu_torch.experiments.dma_gather_bench import (
+        median_device_ms,
+    )
+    from cobs_tpu_torch.parallel import dryrun
+    from cobs_tpu_torch.parallel import sharded as sh
+    from cobs_tpu_torch.parallel.benchmark import benchmark_scaling
+    from cobs_tpu_torch.parallel.sharded import make_mesh
+
+    # the quick-check entry points, on the card before the main path:
+    # entry()'s step against K1's plain version; dryrun_multichip's
+    # sharded step (the scatter and K1 on 8-word shards after the
+    # transpose, against numpy) and its serving surface on a (2, 2) mesh
+    t0 = time.perf_counter()
+    fn, args = dryrun.entry(DEVICE)
+    require(torch.equal(fn(*args), qk.gather_and_count_reference(*args, 3)),
+            "phase 12: dryrun.entry()'s step != K1's plain version")
+    dryrun.dryrun_multichip(SHARDS, cuda0(torch, SHARDS))
+    torch.cuda.synchronize()
+    dry_s = time.perf_counter() - t0
+
+    W, docs, L, k = 384, 10_000, 1030, 100
+    ix = engine.DeviceIndex.from_arrays(
+        random_matrix(torch, rows, W, seed=1), [0], [rows], W,
+        term_size=31, canonicalize=1, num_hashes=1, page_size=docs // 8,
+        file_names=[f"doc{i:05d}" for i in range(docs)], device=DEVICE)
+    queries = acgt_queries(np.random.default_rng(2), B * n_batches, L)
+    batches = [queries[i:i + B] for i in range(0, len(queries), B)]
+    s1 = Search(ix)
+    walls = {}
+
+    def run(s, what, num_results):
+        t0 = time.perf_counter()
+        out = [rl for bq in batches
+               for rl in s.search_batch(bq, 0.0, num_results)]
+        torch.cuda.synchronize()
+        walls[what] = time.perf_counter() - t0
+        return out
+
+    run(s1, "warm", k)
+    want = {nr: run(s1, ("single", nr), nr) for nr in (k, 0)}
+    want_stream = list(s1.search_stream(queries, 0.0, k, batch_size=B))
+    require(same_ranking(want_stream, want[k]), "phase 12: single-device "
+                                                "search_stream != batch")
+    long_q = acgt_queries(np.random.default_rng(13), 4, 70_000)
+    want_long = {nr: s1.search_batch(long_q, 0.0, nr) for nr in (k, 0)}
+
+    info, launches, shard_k, exact = {}, {}, {}, {}
+    for shape in ((1, SHARDS), (2, 2)):
+        mesh = make_mesh(*shape, cuda0(torch, SHARDS))
+        t0 = time.perf_counter()
+        s = Search(ix, mesh=mesh)
+        torch.cuda.synchronize()
+        shard_s = time.perf_counter() - t0
+        si = s._scorers[0]
+        Wl = si.shard_width
+        require(si.word_width == 512 and len(si._shards) == shape[1]
+                and all(t.is_contiguous() and tuple(t.shape) ==
+                        (rows + 1, Wl) for t in si._shards.values()),
+                f"phase 12 {shape}: shards "
+                f"{[tuple(t.shape) for t in si._shards.values()]}")
+        # one batch first (launch plans, pinned host blocks), then the
+        # main path, with every count at 0 just before it
+        s.search_batch(batches[0], 0.0, k)
+        qk.LAUNCHES = dh.LAUNCHES = 0
+        got = run(s, (shape, k), k)
+        launches[shape, "batch"] = (qk.LAUNCHES, dh.LAUNCHES)
+        require(launches[shape, "batch"] == (SHARDS * n_batches,) * 2,
+                f"phase 12 {shape} search_batch: launches "
+                f"{launches[shape, 'batch']}, not one per cell per batch")
+        require(same_ranking(got, want[k]), f"phase 12 {shape}: top {k} "
+                                            "!= the single-device ranking")
+        qk.LAUNCHES = dh.LAUNCHES = 0
+        t0 = time.perf_counter()
+        got = list(s.search_stream(queries, 0.0, k, batch_size=B))
+        walls[shape, "stream"] = time.perf_counter() - t0
+        launches[shape, "stream"] = (qk.LAUNCHES, dh.LAUNCHES)
+        groups = -(-n_batches // settings.mega_batches)
+        require(launches[shape, "stream"] == (SHARDS * groups,) * 2,
+                f"phase 12 {shape} search_stream: launches "
+                f"{launches[shape, 'stream']}, not one per cell per group")
+        require(same_ranking(got, want[k]), f"phase 12 {shape}: "
+                                            "search_stream ranks differently")
+        require(same_ranking(run(s, (shape, 0), 0), want[0]),
+                f"phase 12 {shape}: full ranking != the single-device one")
+        require(same_ranking(
+            list(s.search_stream(queries, 0.0, 0, batch_size=B)), want[0]),
+            f"phase 12 {shape}: search_stream full ranking differs")
+        if shape == (2, 2):
+            # the sequence split: 69,970 terms >= settings.seq_split_terms
+            require(not s._device_hashed(ix, [q.encode() for q in long_q]),
+                    "phase 12: a long query was hashed on the card")
+            for nr in (k, 0):
+                qk.LAUNCHES = dh.LAUNCHES = 0
+                got = s.search_batch(long_q, 0.0, nr)
+                torch.cuda.synchronize()
+                launches[shape, "seq", nr] = (qk.LAUNCHES, dh.LAUNCHES)
+                require(launches[shape, "seq", nr] == (SHARDS, 0),
+                        f"phase 12 sequence split: launches "
+                        f"{launches[shape, 'seq', nr]}")
+                require(same_ranking(got, want_long[nr]),
+                        f"phase 12 sequence split, num_results={nr}: "
+                        "!= the single-device ranking")
+        else:
+            shard_k = shard_kernels(torch, qk, dh, engine, sh, si, batches[0],
+                                    k, median_device_ms)
+        exact[shape] = shard_shapes_exact(
+            torch, qk, dh, engine, si, shape, batches,
+            long_q if shape == (2, 2) else None)
+        info[shape] = (shard_s, Wl)
+        del s, si
+        torch.cuda.empty_cache()
+    del s1, ix
+    torch.cuda.empty_cache()
+
+    streamed = phase_sharded_files(torch, qk, engine, Search, QueryClient,
+                                   cli_main, sh, make_mesh, queries, B, k,
+                                   rows, docs)
+    # two runs, each shard count timed over SCALING_ITERS batches, so
+    # that the spread between them stands beside the effect
+    scaling = [benchmark_scaling(n_devices=SHARDS, iters=SCALING_ITERS,
+                                 devices=cuda0(torch, SHARDS))
+               for _ in range(2)]
+    torch.cuda.synchronize()
+
+    qps = {key: len(queries) / w for key, w in walls.items()}
+    print(f"phase 12 sharded reference scale ({card}; phase 3's matrix, "
+          f"{rows}+1 rows x {W} words, {docs} documents, {len(queries)} "
+          f"random {L} bp queries in batches of {B}; shards on ONE card: "
+          "correctness and per-shard cost, not scaling across cards): "
+          f"every ranking (top {k} and full, search_batch and "
+          "search_stream) == the single-device Search's")
+    for shape, (shard_s, Wl) in info.items():
+        print(f"phase 12 mesh {shape}: word_width 512, {shape[1]} docs "
+              f"shards of {Wl} words ({(rows + 1) * Wl * 4 / 1e9:.2f} GB "
+              f"each), made in {shard_s:.2f} s; launches (K1, hash) per "
+              f"{n_batches} batches: search_batch "
+              f"{launches[shape, 'batch']}, search_stream (groups of "
+              f"{settings.mega_batches}) {launches[shape, 'stream']}; top "
+              f"{k} search_batch {qps[shape, k]:.0f} q/s, search_stream "
+              f"{qps[shape, 'stream']:.0f} q/s, full ranking "
+              f"{qps[shape, 0]:.0f} q/s; single device in this call: "
+              f"{qps['single', k]:.0f} / {qps['single', 0]:.0f} q/s "
+              "(top k / full)")
+    print(f"phase 12 sequence split on the (2, 2) mesh: 4 queries of "
+          f"70,000 bp ({70_000 - 30} terms), launches (K1, hash) "
+          f"{launches[(2, 2), 'seq', k]} top {k} and "
+          f"{launches[(2, 2), 'seq', 0]} full: == the single-device "
+          "rankings")
+    print(f"phase 12 K1 at one cell's shape (B={B} T={L - 30} h=1 P=1 "
+          f"W={shard_k['W']}): kernel {shard_k['k1']['ms']:.4f} ms, plain "
+          f"{shard_k['k1']['plain_ms']:.4f} ms, bound "
+          f"{shard_k['k1']['bound_ms']:.4f} ms ({shard_k['k1']['bound_by']}"
+          f"); hash kernel on one cell's payload {shard_k['hash']['ms']:.4f}"
+          f" ms, plain {shard_k['hash']['plain_ms']:.4f} ms, bound "
+          f"{shard_k['hash']['bound_ms']:.6f} ms; _merge_topk_host of "
+          f"{SHARDS} x {k} candidates per query, one batch: "
+          f"{shard_k['merge_ms']:.4f} ms (median of 20)")
+    print(f"phase 12 dryrun ({card}): entry()'s step == K1's plain "
+          f"version; dryrun_multichip({SHARDS}, [cuda:0] * {SHARDS}) "
+          f"(scatter and K1 on 8-word shards == numpy, groups, serving "
+          f"surface) passed; {dry_s:.2f} s")
+    for shape, lines in exact.items():
+        print(f"phase 12 mesh {shape}, kernel == plain, exact: "
+              + "; ".join(lines))
+
+    def spread(a, b):
+        return abs(a - b) / ((a + b) / 2)
+
+    a, b = scaling
+    for n in sorted(a["per_n"]):
+        print(f"phase 12 benchmark_scaling: {n} shards on "
+              f"{a['distinct'][n]} device ({card}): {a['per_n'][n]:.0f} / "
+              f"{b['per_n'][n]:.0f} q/s in two runs (spread "
+              f"{spread(a['per_n'][n], b['per_n'][n]):.3f}; B=16, 1,000 "
+              f"terms, 4,096 documents per shard, {SCALING_ITERS} batches "
+              f"each), cross-device copies per batch "
+              f"{a['copies_per_batch'][n]:g} / {b['copies_per_batch'][n]:g}"
+              f", exchanges per batch {a['exchanges_per_batch'][n]:g} / "
+              f"{b['exchanges_per_batch'][n]:g}")
+    print(f"phase 12 benchmark_scaling: efficiency "
+          f"{a['efficiency']:.3f} / {b['efficiency']:.3f} (spread "
+          f"{spread(a['efficiency'], b['efficiency']):.3f}) against "
+          f"predicted {a['predicted_efficiency']:.3f} (min(1, d / n): "
+          f"{SHARDS} shards share one card); K=8 groups "
+          f"{a['mega_qps']:.0f} / {b['mega_qps']:.0f} q/s")
+    return {"launches": launches[(1, SHARDS), "batch"],
+            "stream_launches": launches[(1, SHARDS), "stream"],
+            "batches": n_batches, **shard_k, **streamed}
+
+
+def shard_kernels(torch, qk, dh, engine, sh, si, batch, k,
+                  median_device_ms) -> dict:
+    """K1 and the hash kernel against their plain versions at one cell's
+    shapes (cell (0, 0) of the (1, 4) mesh: the whole batch against a
+    128-word shard), timed beside their bounds; and the host merge of one
+    batch's candidates."""
+    qbytes = [q.encode() for q in batch]
+    B, L = len(batch), len(batch[0])
+    T = L - 30
+    hashes = engine.create_hashes(qbytes, 31, 1, 1)
+    rows = torch.from_numpy(si._rows_idx(hashes, B)).to(DEVICE)
+    shard = si.shard(0, 0)
+    W = shard.shape[1]
+    got = qk.gather_and_count(shard, rows, 1)
+    want = qk.gather_and_count_reference(shard, rows, 1)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), "K1 at a shard's shape != plain")
+    k1 = {"ms": median_device_ms(
+              torch, lambda i: qk.gather_and_count(shard, rows, 1)),
+          "plain_ms": median_device_ms(
+              torch, lambda i: qk.gather_and_count_reference(shard, rows,
+                                                             1), reps=5)}
+    k1["bound_ms"], k1["bound_by"] = bound(
+        B * T * W * 4 + B * W * 32 * 4 + B * T * 4, B * T * W * 32)
+    qdata, qlens = si._pack_queries(engine.QueryBytes(qbytes), B)
+    sig, off, mag = si._tables[shard.device]
+    args = (torch.from_numpy(qdata).to(DEVICE),
+            torch.from_numpy(qlens).to(DEVICE), 31, 1, 1, sig, off,
+            si.zero_row, mag)
+    require(torch.equal(dh.rows_from_queries(*args),
+                        dh.rows_from_queries_reference(*args)),
+            "the hash kernel on a cell's payload != plain")
+    require(torch.equal(dh.rows_from_queries(*args), rows),
+            "the hash kernel on a cell's payload != the host rows")
+    hk = {"ms": median_device_ms(torch,
+                                 lambda i: dh.rows_from_queries(*args)),
+          "plain_ms": median_device_ms(
+              torch, lambda i: dh.rows_from_queries_reference(*args),
+              reps=5)}
+    hk["bound_ms"], hk["bound_by"] = bound(
+        B * L + B * 4 + B * T * 4 + 16, B * T * (3 * 31 + 40 + 15 + 2))
+    v, g = si._dispatch(hashes, k).get()
+    lay, W32 = si.index.doc_layout, si.word_width * 32
+    times = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        sh._merge_topk_host(v, g, W32, lay, B, k)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"W": W, "k1": k1, "hash": hk,
+            "merge_ms": statistics.median(times)}
+
+
+def shard_shapes_exact(torch, qk, dh, engine, si, shape, batches,
+                       long_q=None) -> list[str]:
+    """The hash kernel and K1 against their plain versions, exact, at the
+    other shapes the main path gives them on this mesh (each a launch
+    geometry of its own: plan_gather_count picks slices and clusters
+    from B, T and W): the last cell's share of one batch, its share of a
+    search_stream group (engine._concat_payloads of every batch), and,
+    given the long queries, its term slice of the sequence split (host
+    rows) against its shard. Returns one line per kernel and shape."""
+    ix = si.index
+    n_batch = shape[0]
+    b, d = n_batch - 1, shape[1] - 1
+    shard = si.shard(b, d)
+    sig, off, mag = si._tables[shard.device]
+    done = []
+
+    def k1(rows, what):
+        got = qk.gather_and_count(shard, rows, ix.num_hashes)
+        want = qk.gather_and_count_reference(shard, rows, ix.num_hashes)
+        require(torch.equal(got, want), f"phase 12 {shape}: K1 != plain "
+                                        f"({what}), {max_err(got, want)}")
+        done.append(f"K1 on {what} (B={rows.shape[0]} T={rows.shape[1]} "
+                    f"W={shard.shape[1]})")
+
+    def cell_payload(queries, what):
+        payloads = [engine.QueryBytes([q.encode() for q in bq])
+                    for bq in queries]
+        cat = engine._concat_payloads(ix, payloads)
+        n_pad = -(-max(len(cat), n_batch) // n_batch) * n_batch
+        nl = n_pad // n_batch
+        qdata, qlens = si._pack_queries(cat, n_pad)
+        args = (torch.from_numpy(np.ascontiguousarray(
+                    qdata[b * nl:(b + 1) * nl])).to(shard.device),
+                torch.from_numpy(np.ascontiguousarray(
+                    qlens[b * nl:(b + 1) * nl])).to(shard.device),
+                ix.term_size, ix.num_hashes, ix.canonicalize, sig, off,
+                si.zero_row, mag)
+        rows = dh.rows_from_queries(*args)
+        require(torch.equal(rows, dh.rows_from_queries_reference(*args)),
+                f"phase 12 {shape}: hash kernel != plain ({what})")
+        done.append(f"hash kernel on {what} (B={nl} L={qdata.shape[1]})")
+        k1(rows, what)
+
+    cell_payload(batches[:1], f"cell ({b}, {d}) of one batch")
+    cell_payload(batches, f"cell ({b}, {d}) of a search_stream group of "
+                          f"{len(batches)}")
+    if long_q is not None:
+        hashes = engine.create_hashes([q.encode() for q in long_q],
+                                      ix.term_size, ix.num_hashes,
+                                      ix.canonicalize)
+        rows = si._rows_idx(hashes, len(long_q), n_batch)
+        tl = rows.shape[1] // n_batch
+        k1(torch.from_numpy(np.ascontiguousarray(
+               rows[:, b * tl:(b + 1) * tl])).to(shard.device),
+           f"the sequence split's cell ({b}, {d}) term slice")
+    torch.cuda.synchronize()
+    return done
+
+
+def phase_sharded_files(torch, qk, engine, Search, QueryClient, cli_main,
+                        sh, make_mesh, queries, B, k, rows, docs) -> dict:
+    """Phase 12 (c), (e) and (f): phase 9's file written again, streamed
+    into 4 shards; two processes on a global mesh; `query` and `serve`
+    with --mesh."""
+    path = ROOT / "bench_data" / "phase9_reference.cobs_classic"
+    work = ROOT / "bench_data" / "phase12"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    size = write_classic_index(path, rows, docs, seed=9)
+    read_through(path)
+    print(f"phase 12 wrote {path.name} again from phase 9's seed: {size} "
+          f"bytes in {time.perf_counter() - t0:.1f} s")
+    try:
+        return _phase_sharded_files(torch, qk, engine, Search, QueryClient,
+                                    cli_main, sh, make_mesh, queries, B, k,
+                                    path, work)
+    finally:
+        path.unlink(missing_ok=True)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+#: the corpus of phase 12's two processes: cobs_tpu's two-process test's
+#: (tests/multihost_construct_worker.py), 20 documents; the golden corpus
+#: has 7, fewer than one 8-document slice per process
+CHILD_DOCS = 20
+
+
+def child_corpus(root: Path) -> list[bytes]:
+    rng = np.random.default_rng(11)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    seqs = [bases[rng.integers(0, 4, size=130 + 53 * i)].tobytes()
+            for i in range(CHILD_DOCS)]
+    root.mkdir(parents=True, exist_ok=True)
+    for i, seq in enumerate(seqs):
+        (root / f"doc{i:03d}.fasta").write_bytes(b">d\n" + seq + b"\n")
+    return seqs
+
+
+def _phase_sharded_files(torch, qk, engine, Search, QueryClient, cli_main,
+                         sh, make_mesh, queries, B, k, path, work) -> dict:
+    import contextlib
+    import io
+
+    import cobs_tpu_torch as ct
+
+    mesh = make_mesh(1, SHARDS, cuda0(torch, SHARDS))
+    held = Search(str(path))
+    require(isinstance(held.index_files[0], engine.DeviceIndex),
+            "phase 12: phase 9's file was not held on the card")
+    want = [rl for i in range(0, len(queries), B)
+            for rl in held.search_batch(queries[i:i + B], 0.0, k)]
+    want_full = [rl for i in range(0, 2 * B, B)
+                 for rl in held.search_batch(queries[i:i + B], 0.0, 0)]
+    del held
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    st = Search(str(path), mesh=mesh, streamed=True)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    require(isinstance(st.index_files[0], engine.StreamedIndex)
+            and len(st._scorers[0]._shards) == SHARDS,
+            "phase 12: the streamed mesh Search did not hold 4 shards")
+    qk.LAUNCHES = 0
+    got = [rl for i in range(0, len(queries), B)
+           for rl in st.search_batch(queries[i:i + B], 0.0, k)]
+    torch.cuda.synchronize()
+    st_launches = qk.LAUNCHES
+    require(same_ranking(got, want), "phase 12 streamed into shards: top "
+                                     f"{k} != the held index's")
+    got = [rl for i in range(0, 2 * B, B)
+           for rl in st.search_batch(queries[i:i + B], 0.0, 0)]
+    require(same_ranking(got, want_full), "phase 12 streamed into shards: "
+                                          "full ranking != the held one")
+    del st
+    torch.cuda.empty_cache()
+
+    # two processes on one global mesh of 4 cells, 2 per process, and
+    # `serve --mesh 1`, started together
+    n_child = 4 * B
+    seqs = child_corpus(work / "docs")
+    single = work / "single.cobs_classic"
+    with contextlib.redirect_stderr(io.StringIO()):
+        ct.classic_construct(ct.DocumentList(work / "docs"), single,
+                             index_params=ct.ClassicIndexParameters())
+    child_q = [seqs[1][:61].decode(), seqs[10][5:80].decode(),
+               seqs[19][:45].decode()]
+    (work / "spec.json").write_text(json.dumps({
+        "path": str(path), "queries": queries[:n_child], "B": B, "k": k,
+        "want": pairs(want[:n_child]), "fed_queries": child_q,
+        "fed_want": pairs(Search(str(single)).search_batch(child_q, 0.0))}))
+    d = sock_dir()
+    sock = d / "mesh.sock"
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        logs += [open(work / f"child{i}.log", "wb") for i in range(2)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; "
+             f"chip_smoke.sharded_child({i}, {str(work)!r})"],
+            cwd=ROOT, stdout=logs[i], stderr=subprocess.STDOUT)
+            for i in range(2)]
+        serve_log = open(work / "serve.log", "wb")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "cobs_tpu_torch.cli.main", "serve",
+             "--mesh", "1", "-i", str(GOLDEN_DIR / "fasta7.cobs_classic"),
+             "--socket", str(sock), "-t", "0", "--linger-ms", "1"],
+            cwd=ROOT, stdout=serve_log, stderr=subprocess.STDOUT))
+        logs.append(serve_log)
+        # query --mesh in this process meanwhile
+        for kind in ("classic", "compact"):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                rc = cli_main(["query", "--mesh", "1", "-i",
+                               str(GOLDEN_DIR / f"fasta7.cobs_{kind}"),
+                               "-t", "0", GOLDEN_QUERY])
+            lines = [tuple(x.split("\t")) for x in
+                     out.getvalue().splitlines()]
+            require(rc == 0 and [(a, int(b)) for a, b in lines]
+                    == GOLDEN_LINES, f"query --mesh 1 {kind}: rc {rc}, "
+                                     f"{lines}")
+        too_many = torch.cuda.device_count() + 1
+        for cmd in ("query", "serve"):
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                rc = cli_main([cmd, "--mesh", str(too_many), "-i",
+                               str(GOLDEN_DIR / "fasta7.cobs_classic"),
+                               "--socket", str(d / "no.sock")]
+                              if cmd == "serve" else
+                              [cmd, "--mesh", str(too_many), "-i",
+                               str(GOLDEN_DIR / "fasta7.cobs_classic"),
+                               GOLDEN_QUERY])
+            require(rc != 0 and "mesh needs" in err.getvalue(),
+                    f"{cmd} --mesh {too_many} on {too_many - 1} card(s): "
+                    f"rc {rc}")
+        wait_for(sock, procs[2], 300)
+        with QueryClient(str(sock), timeout=60) as c:
+            got = pairs([c.search(GOLDEN_QUERY, threshold=0.8),
+                         c.search(GOLDEN_QUERY, threshold=0.0)])
+        require(got == [GOLDEN_LINES[:1], GOLDEN_LINES],
+                f"serve --mesh 1: {got}")
+        procs[2].terminate()
+        require(procs[2].wait(timeout=60) == 0,
+                "serve --mesh 1: SIGTERM did not give rc 0")
+        for i in range(2):
+            rc = procs[i].wait(timeout=300)
+            require(rc == 0, f"phase 12 child {i} exited {rc}")
+        children_s = time.perf_counter() - t0
+    except BaseException:
+        for log in logs:
+            log.flush()
+        for name in ("child0", "child1", "serve"):
+            f = work / f"{name}.log"
+            if f.exists():
+                print(f"phase 12 {name} log: "
+                      f"{f.read_bytes()[-3000:].decode(errors='replace')}",
+                      file=sys.stderr)
+        raise
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+        for log in logs:
+            log.close()
+        shutil.rmtree(d, ignore_errors=True)
+    child_lines = [line for i in range(2) for line in
+                   (work / f"child{i}.log").read_text().splitlines()
+                   if line.startswith("phase 12 child")]
+    print(f"phase 12 streamed into {SHARDS} shards (Search(path, mesh, "
+          f"streamed=True), phase 9's file): uploaded shard by shard in "
+          f"{upload_s:.2f} s; {len(queries)} queries top {k} ({st_launches} "
+          f"K1 launches) and {2 * B} full rankings == the held index's")
+    for line in child_lines:
+        print(line)
+    print(f"phase 12 two processes and serve --mesh 1 done in "
+          f"{children_s:.1f} s; query --mesh 1 and serve --mesh 1 gave the "
+          f"reference's lines; --mesh {too_many} exited non-zero")
+    return {"streamed_launches": st_launches}
+
+
+def sharded_child(rank: int, work: str) -> None:
+    """One of phase 12's two processes (started by _phase_sharded_files):
+    a gloo group through a file store, a global mesh of 4 cells (2 per
+    process, all on cuda:0); phase 9's file streamed into this process's
+    own shards and 256 queries scored, equal to the parent's single-
+    device rankings; then construction of its slice of a 20-document
+    corpus and the federation, on one device and over the global mesh,
+    equal to one build."""
+    import torch
+
+    import cobs_tpu_torch as ct
+    from cobs_tpu_torch.ops import query_kernel as qk
+    from cobs_tpu_torch.parallel import distributed, sharded
+
+    work = Path(work)
+    spec = json.loads((work / "spec.json").read_text())
+    ct.settings.disable_cache = True
+    t0 = time.perf_counter()
+    distributed.initialize(f"file://{work / 'store'}", num_processes=2,
+                           process_id=rank, timeout=300)
+    try:
+        mesh = distributed.global_mesh(devices=cuda0(torch, 2))
+        require(mesh.shape == {"batch": 1, "docs": SHARDS}
+                and mesh.local_cells() == [(0, 2 * rank),
+                                           (0, 2 * rank + 1)],
+                f"child {rank}: mesh {mesh}")
+        t1 = time.perf_counter()
+        s = ct.Search(spec["path"], mesh=mesh, streamed=True)
+        torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t1
+        require(len(s._scorers[0]._shards) == 2,
+                f"child {rank} uploaded {len(s._scorers[0]._shards)} shards")
+        B, k, q = spec["B"], spec["k"], spec["queries"]
+        qk.LAUNCHES = sharded.EXCHANGES = 0
+        t1 = time.perf_counter()
+        got = [rl for i in range(0, len(q), B)
+               for rl in s.search_batch(q[i:i + B], 0.0, k)]
+        torch.cuda.synchronize()
+        score_s = time.perf_counter() - t1
+        k1_launches = qk.LAUNCHES
+        n_b = len(q) // B
+        require([[list(p) for p in rl] for rl in pairs(got)]
+                == spec["want"], f"child {rank}: rankings differ")
+        require((k1_launches, sharded.EXCHANGES) == (2 * n_b, n_b),
+                f"child {rank}: {k1_launches} K1 launches, "
+                f"{sharded.EXCHANGES} exchanges for {n_b} batches")
+        prefix = work / "fed"
+        mine = distributed.construct(
+            ct.DocumentList(work / "docs"), prefix, kind="classic",
+            index_params=ct.ClassicIndexParameters(clobber=True),
+            tmp_path=work / f"tmp{rank}")
+        require(mine == distributed.shard_path(prefix, rank),
+                f"child {rank}: shard {mine}")
+        distributed.barrier()
+        fq = spec["fed_queries"]
+        for how, m in (("one device", None),
+                       ("global mesh", distributed.global_mesh(
+                           devices=cuda0(torch, 2)))):
+            fed = distributed.open_federated(prefix, 2, "classic", mesh=m)
+            got = [[list(p) for p in rl]
+                   for rl in pairs(fed.search_batch(fq, 0.0))]
+            require(got == spec["fed_want"], f"child {rank}: federation "
+                                             f"on {how} != one build")
+        distributed.barrier()
+        print(f"phase 12 child {rank}: global mesh of {SHARDS} cells, 2 "
+              f"local, uploaded in {upload_s:.2f} s; {len(q)} queries top "
+              f"{k} in {score_s:.2f} s == the single-device rankings, "
+              f"{k1_launches} K1 launches and {n_b} exchanges for {n_b} "
+              f"batches; construct + open_federated (one device and the "
+              f"global mesh) == one build; {time.perf_counter() - t0:.1f} "
+              "s in all", flush=True)
+    finally:
+        distributed.shutdown()
+
+
 def main() -> int:
     import torch
 
@@ -1828,6 +2544,10 @@ def main() -> int:
     phase_serve_cli(QueryClient)
     served = phase_serve(torch, qk, dh, engine, Search, QueryServer,
                          QueryClient, settings, card)
+    torch.cuda.empty_cache()
+    mesh = phase_sharded(torch, qk, dh, engine, Search, QueryClient,
+                         settings, cli_main, card)
+    con_mesh = con.pop("sharded")
 
     entries = {
         "gather_and_count": dict(
@@ -1835,19 +2555,35 @@ def main() -> int:
             library_ms=None,
             streamed_launches=streamed["launches"]["gather_and_count"],
             served_launches=served["launches"][0],
-            served_batches=served["batches"], **ref["k1"]),
+            served_batches=served["batches"],
+            sharded_launches=mesh["launches"][0],
+            sharded_stream_launches=mesh["stream_launches"][0],
+            sharded_batches=mesh["batches"],
+            sharded_streamed_launches=mesh["streamed_launches"],
+            shard_ms=mesh["k1"]["ms"], shard_plain_ms=mesh["k1"]["plain_ms"],
+            shard_bound_ms=mesh["k1"]["bound_ms"], **ref["k1"]),
         "rows_from_queries": dict(
             launches=ref["launches"]["rows_from_queries"], max_abs_err=0,
             library_ms=None,
             streamed_launches=streamed["launches"]["rows_from_queries"],
             served_launches=served["launches"][1],
             served_batches=served["batches"],
+            sharded_launches=mesh["launches"][1],
+            sharded_stream_launches=mesh["stream_launches"][1],
+            sharded_batches=mesh["batches"],
+            shard_ms=mesh["hash"]["ms"],
+            shard_plain_ms=mesh["hash"]["plain_ms"],
+            shard_bound_ms=mesh["hash"]["bound_ms"],
             control_ms=hash5["phase 3"]["control_ms"], **ref["hash"]),
         "dma_gather_rows": dict(
             launches=k2_launches, max_abs_err=0, ms=k2["ms"],
             plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
             bound_by="bytes", library_ms=k2["library_ms"]),
-        "construct_scatter": dict(max_abs_err=0, library_ms=None, **con),
+        "construct_scatter": dict(
+            max_abs_err=0, library_ms=None,
+            sharded_launches=con_mesh["launches"],
+            shard_ms=con_mesh["ms"], shard_plain_ms=con_mesh["plain_ms"],
+            shard_bound_ms=con_mesh["bound_ms"], **con),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],

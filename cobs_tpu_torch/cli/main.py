@@ -1,5 +1,5 @@
 """`cobs` command line of the PyTorch port: the document tools, index
-construction, `query`, `benchmark-fpr` and `serve`.
+construction, `query`, `benchmark-fpr`, `serve` and `benchmark-scaling`.
 
 Same flags, defaults and output as those subtools in cobs_tpu/cli/main.py
 (reference: src/cobs.cpp:970-1016), plus `--device` where a command uses
@@ -20,18 +20,26 @@ the device:
     python -m cobs_tpu_torch.cli.main repack IN OUT [-p 0] [--clobber]
     python -m cobs_tpu_torch.cli.main query -i INDEX [-t 0.8] [-l 0] \\
         [--streamed | --load-complete] [-T THREADS] [--device cuda] \\
-        (QUERY | -f QUERIES.fa)
+        [--mesh N] (QUERY | -f QUERIES.fa)
     python -m cobs_tpu_torch.cli.main benchmark-fpr INDEX [-q 10000] \\
         [-k 1000] [-b 64] [-l 0] [--streamed] [--cold] [--device cuda]
     python -m cobs_tpu_torch.cli.main serve -i INDEX [--socket PATH | \\
         --host H --port 7687] [-t 0.8] [-l 0] [-b 64] [--linger-ms 2] \\
         [--warmup LEN] [--log-interval S] [--stall-timeout 300] \\
-        [--slo-ms MS] [--streamed | --load-complete] [--device cuda]
+        [--slo-ms MS] [--streamed | --load-complete] [--device cuda] \\
+        [--mesh N]
+    python -m cobs_tpu_torch.cli.main benchmark-scaling [-n N] \\
+        [--docs-per-shard 4096] [--sig-size 262144] [-b 16] \\
+        [--num-kmers 1000] [--iterations 10] [--batch-sweep B,B] \\
+        [--device cuda]
 
 Construction sets the Bloom bits on the device (the bit scatter kernel on
 a CUDA card; `--device cpu` runs its plain version); `--device-construct`
 is accepted for the reference CLI's sake and is the default. Without
 CUDA, a command that uses the device raises unless given `--device cpu`.
+`--mesh N` shards each index over the first N visible devices of
+`--device` (document-axis sharding, parallel/sharded.py); N beyond them
+raises.
 """
 
 import argparse
@@ -62,6 +70,23 @@ def _add_device_flag(p, what: str):
     p.add_argument("--device", default=None,
                    help=f"torch device {what}, default: settings.device "
                         "(cuda)")
+
+
+def _add_mesh_flag(p):
+    p.add_argument("--mesh", type=int, default=0, metavar="N",
+                   help="shard the index over the first N devices "
+                        "(document-axis sharding), default: 0 = one "
+                        "device")
+
+
+def _mesh(args):
+    """The --mesh N mesh over the first N visible devices of --device, or
+    None; raises when fewer are visible."""
+    if not args.mesh:
+        return None
+    from cobs_tpu_torch.parallel.sharded import make_mesh, visible_devices
+
+    return make_mesh(1, args.mesh, visible_devices(args.device))
 
 
 def _parser_with_num_hashes(prog) -> argparse.ArgumentParser:
@@ -344,13 +369,14 @@ def cmd_query(argv):
                         "larger than device memory)")
     _add_threads_flag(p)
     _add_device_flag(p, "holding the index")
+    _add_mesh_flag(p)
     args = p.parse_args(argv)
     _apply_threads(args)
 
     from cobs_tpu_torch.query.search import Search
 
     # --streamed wins over --load-complete, as in cobs_tpu
-    s = Search(args.index, device=args.device,
+    s = Search(args.index, device=args.device, mesh=_mesh(args),
                streamed=(True if args.streamed
                          else False if args.load_complete else None))
     if args.query:
@@ -512,6 +538,7 @@ def cmd_serve(argv):
                    help="serve the index from a host mmap")
     _add_threads_flag(p)
     _add_device_flag(p, "holding the index")
+    _add_mesh_flag(p)
     args = p.parse_args(argv)
     _apply_threads(args)
     if not args.index:
@@ -523,10 +550,12 @@ def cmd_serve(argv):
     from cobs_tpu_torch.query.search import Search
     from cobs_tpu_torch.query.server import QueryServer
 
+    mesh = _mesh(args)
+
     def factory(paths=None):
         # --streamed wins over --load-complete, as in cobs_tpu
         return Search(list(paths) if paths else args.index,
-                      device=args.device,
+                      device=args.device, mesh=mesh,
                       streamed=(True if args.streamed
                                 else False if args.load_complete
                                 else None))
@@ -557,6 +586,59 @@ def cmd_serve(argv):
         pass
     finally:
         server.close()
+    return 0
+
+
+def cmd_benchmark_scaling(argv):
+    p = argparse.ArgumentParser(prog="cobs benchmark-scaling")
+    p.add_argument("-n", "--num-devices", type=int, default=0,
+                   help="devices to scale to (default: all visible)")
+    p.add_argument("--docs-per-shard", type=int, default=4096)
+    p.add_argument("--sig-size", type=int, default=1 << 18)
+    p.add_argument("-b", "--batch", type=int, default=16)
+    p.add_argument("--batch-sweep", type=str, default="",
+                   help="comma-separated batch sizes to also measure at "
+                        "the full width (scaling claims must state B)")
+    p.add_argument("--num-kmers", type=int, default=1000)
+    p.add_argument("--iterations", type=int, default=10)
+    _add_device_flag(p, "whose visible devices are sharded over")
+    args = p.parse_args(argv)
+
+    from cobs_tpu_torch.parallel.benchmark import benchmark_scaling
+    from cobs_tpu_torch.parallel.sharded import visible_devices
+
+    sweep = tuple(int(x) for x in args.batch_sweep.split(",") if x)
+    r = benchmark_scaling(
+        n_devices=args.num_devices or None, sig_size=args.sig_size,
+        docs_per_shard=args.docs_per_shard, B=args.batch,
+        T=args.num_kmers, iters=args.iterations, B_sweep=sweep,
+        devices=visible_devices(args.device))
+    for n, qps in sorted(r["per_n"].items()):
+        print(f"RESULT shards={n} distinct_devices={r['distinct'][n]} "
+              f"batch={args.batch} queries_per_s={qps:.1f} "
+              f"docs_per_query={n * args.docs_per_shard} "
+              f"cpu_cores_busy={r['cpu_util'][n]:.2f} "
+              f"cross_device_copies_per_batch="
+              f"{r['copies_per_batch'][n]:g} "
+              f"exchanges_per_batch={r['exchanges_per_batch'][n]:g}")
+    for b, qps in sorted(r["per_b"].items()):
+        print(f"RESULT batch_sweep B={b} queries_per_s={qps:.1f}")
+    full = r["per_n"][max(r["per_n"])]
+    print(f"RESULT mesh_mega batch={args.batch} K=8 "
+          f"queries_per_s={r['mega_qps']:.1f} "
+          f"vs_per_batch={r['mega_qps'] / full:.2f}")
+    cm = r["cost_model"]
+    print(f"RESULT cost_model hbm_bytes_per_query_per_shard="
+          f"{cm['hbm_bytes_per_query_per_shard']} "
+          f"cross_device_bytes_per_query="
+          f"{cm['cross_device_bytes_per_query']} "
+          f"upload_bytes_per_query={cm['upload_bytes_per_query']} "
+          f"distinct_devices={cm['distinct_devices']}")
+    if r["efficiency"] is not None:
+        ratio = r["efficiency"] / r["predicted_efficiency"]
+        print(f"RESULT weak_scaling_efficiency={r['efficiency']:.3f} "
+              f"predicted={r['predicted_efficiency']:.3f} "
+              f"measured_over_predicted={ratio:.3f}")
     return 0
 
 
@@ -593,6 +675,8 @@ SUBTOOLS = {
     "benchmark-fpr": (cmd_benchmark_fpr,
                       "run a query benchmark over random queries"),
     "serve": (cmd_serve, "run a resident batching query server"),
+    "benchmark-scaling": (cmd_benchmark_scaling,
+                          "weak-scaling query benchmark over a mesh"),
 }
 
 

@@ -14,8 +14,9 @@ Same observable behavior as the reference pipeline
 The inner loop is the batched bit-matrix builder instead of the
 reference's per-term scalar chain: by default the bit scatter runs on a
 torch device (construct/device.py, the hand-written CUDA kernel on a
-card), with `device_construct=False` in native host threads
-(construct/bitmatrix.py). Both write the same bytes.
+card; over the docs shards of settings.construct_mesh, or of every card
+when several are visible), with `device_construct=False` in native host
+threads (construct/bitmatrix.py). All write the same bytes.
 """
 
 import concurrent.futures
@@ -51,6 +52,19 @@ def _log(msg: str) -> None:
     print(msg, file=sys.stderr)
 
 
+def _construct_mesh(device=None):
+    """Mesh of device construction: settings.construct_mesh when set,
+    else every visible card on the docs axis when `device` (None =
+    settings.device) is "cuda" without an index and more than one card is
+    visible (cobs_tpu's rule), else None: the one device."""
+    if settings.construct_mesh is not None:
+        return settings.construct_mesh
+    from cobs_tpu_torch.parallel.sharded import make_mesh, visible_devices
+
+    devices = visible_devices(device)
+    return make_mesh(1, len(devices), devices) if len(devices) > 1 else None
+
+
 def classic_construct_from_documents(
         doc_list: DocumentList, out_dir,
         params: ClassicIndexParameters) -> None:
@@ -82,6 +96,7 @@ def classic_construct_from_documents(
         # one batch at a time on the device; the builder hashes its
         # documents on worker threads
         num_threads = 1
+        mesh = _construct_mesh(params.device)
 
     num_batches = (doc_list.size() + batch_size - 1) // batch_size
 
@@ -100,7 +115,7 @@ def classic_construct_from_documents(
                 entries, params.signature_size, header.row_size,
                 params.term_size, params.num_hashes,
                 params.canonicalize, _log, device=params.device,
-                timer=thr_t)
+                timer=thr_t, mesh=mesh)
         else:
             thr_t.active("process")
             data = build_batch_matrix(
@@ -337,6 +352,14 @@ def classic_construct(filelist: DocumentList, out_file, tmp_path=None,
         **params.__dict__,
         "signature_size": calc_signature_size(
             max_doc_size, params.num_hashes, params.false_positive_rate)})
+    _classic_construct_sized(filelist, out_file, tmp_path, params)
+
+
+def _classic_construct_sized(filelist: DocumentList, out_file, tmp_path,
+                             params: ClassicIndexParameters) -> None:
+    """Construct and combine with params.signature_size already fixed
+    (parallel.distributed.construct computes it once from the whole
+    corpus, so every process's index has the same Bloom geometry)."""
     out_file = Path(out_file)
     tmp_path = _check_out_and_tmp(out_file, tmp_path, params,
                                   fmt_classic.FILE_EXTENSION)

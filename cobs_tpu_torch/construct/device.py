@@ -22,6 +22,18 @@ OR commutes, so the bytes equal the host scatter's
 (`bitmatrix.build_batch_matrix`) whatever the chunking and the order in
 which workers stage. On a CPU device the scatter is the kernel's plain
 version.
+
+On a mesh (`mesh`, cobs_tpu's `_make_scatter_sharded`) the documents
+are cut over the "docs" axis as the query side cuts them: the batch's
+words are padded to 32 x n_docs documents and docs shard d holds strips
+[d Wl, (d + 1) Wl) as its own word-major int32 [Wl, signature_size + 1]
+on the device of its column's first cell. Each upload goes once to each
+distinct device, and the scatter runs on every shard with the documents
+shifted by the shard's base, d x 32 Wl. The kernel drops documents
+outside its [0, 32 Wl), so foreign updates need no routing (cobs_tpu
+sends them to the scratch row, which here would pile most of every chunk
+onto one word). At fetch the shards' strips are concatenated in docs
+order, then transposed and cut as on one device: the bytes are the same.
 """
 
 import concurrent.futures
@@ -51,36 +63,40 @@ class _UpdateRing:
     """Host buffers of (rows, docs) int32 [chunk] that updates are staged
     in before their upload: pinned on a CUDA device (a non-blocking copy
     from pinned memory is a true asynchronous DMA), plain on the CPU. A
-    full buffer is uploaded and scattered into `words` on the stream that
-    was current when the ring was made. Not thread-safe: callers on
-    several threads hold a lock around `add` and `flush`."""
+    full buffer is uploaded once to each device of `shards` and scattered
+    into each shard, (words, d0) with the documents shifted by -d0, on
+    the stream that was current on its device when the ring was made.
+    Not thread-safe: callers on several threads hold a lock around `add`
+    and `flush`."""
 
-    def __init__(self, words: torch.Tensor, chunk: int, count: int,
+    def __init__(self, shards: list, chunk: int, count: int,
                  timer: Timer | None):
-        self.words = words
-        self.cuda = words.device.type == "cuda"
-        self.stream = (torch.cuda.current_stream(words.device)
-                       if self.cuda else None)
+        self.shards = shards
+        self.devices = list(dict.fromkeys(w.device for w, _ in shards))
+        self.cuda = self.devices[0].type == "cuda"
+        self.streams = {dev: torch.cuda.current_stream(dev)
+                        for dev in self.devices} if self.cuda else {}
         self.chunk = chunk
         self.bufs = [(torch.empty(chunk, dtype=torch.int32,
                                   pin_memory=self.cuda),
                       torch.empty(chunk, dtype=torch.int32,
                                   pin_memory=self.cuda))
                      for _ in range(max(1, count))]
-        self.events = [None] * len(self.bufs)
+        self.events = [[] for _ in self.bufs]
         self.slot = 0
         self.fill = 0
-        #: (before upload, after upload, after kernel) events per launch,
-        #: kept when a timer is given
+        #: (before upload, after upload, after kernels) events per device
+        #: per flush, kept when a timer is given
         self.marks = [] if timer is not None and self.cuda else None
 
     def add(self, rows: np.ndarray, doc: int) -> None:
         """Stage the updates (rows[i], doc), uploading full buffers."""
         pos = 0
         while pos < rows.size:
-            if self.fill == 0 and self.events[self.slot] is not None:
-                self.events[self.slot].synchronize()
-                self.events[self.slot] = None
+            if self.fill == 0 and self.events[self.slot]:
+                for event in self.events[self.slot]:
+                    event.synchronize()
+                self.events[self.slot] = []
             take = min(self.chunk - self.fill, rows.size - pos)
             r, d = (b.numpy() for b in self.bufs[self.slot])
             r[self.fill:self.fill + take] = rows[pos:pos + take]
@@ -90,37 +106,45 @@ class _UpdateRing:
             if self.fill == self.chunk:
                 self.flush()
 
+    def _scatter(self, dev, r: torch.Tensor, d: torch.Tensor) -> None:
+        """Scatter uploaded updates into every shard on `dev`."""
+        for words, d0 in self.shards:
+            if words.device == dev:
+                construct_scatter(words, r, d - d0 if d0 else d)
+
     def flush(self) -> None:
         """Upload the current buffer's updates and scatter them."""
         if not self.fill:
             return
         r, d = (b[:self.fill] for b in self.bufs[self.slot])
         if self.cuda:
-            stream = self.stream
-            marks = [torch.cuda.Event(enable_timing=True)
-                     for _ in range(3)] if self.marks is not None else None
-            with torch.cuda.stream(stream):
-                if marks:
-                    marks[0].record(stream)
-                r = r.to(self.words.device, non_blocking=True)
-                d = d.to(self.words.device, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record(stream)
-                self.events[self.slot] = event
-                if marks:
-                    marks[1].record(stream)
-                construct_scatter(self.words, r, d)
-                if marks:
-                    marks[2].record(stream)
-                    self.marks.append(marks)
+            for dev in self.devices:
+                stream = self.streams[dev]
+                marks = [torch.cuda.Event(enable_timing=True)
+                         for _ in range(3)] if self.marks is not None \
+                    else None
+                with torch.cuda.device(dev), torch.cuda.stream(stream):
+                    if marks:
+                        marks[0].record(stream)
+                    rd = r.to(dev, non_blocking=True)
+                    dd = d.to(dev, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record(stream)
+                    self.events[self.slot].append(event)
+                    if marks:
+                        marks[1].record(stream)
+                    self._scatter(dev, rd, dd)
+                    if marks:
+                        marks[2].record(stream)
+                        self.marks.append(marks)
         else:
-            construct_scatter(self.words, r, d)
+            self._scatter(self.devices[0], r, d)
         self.slot = (self.slot + 1) % len(self.bufs)
         self.fill = 0
 
     def device_ms(self) -> tuple[float, float]:
         """(upload ms, kernel ms) summed over the launches; call after the
-        stream has finished them."""
+        streams have finished them."""
         if not self.marks:
             return 0.0, 0.0
         return (sum(a.elapsed_time(b) for a, b, _ in self.marks),
@@ -131,9 +155,12 @@ def build_batch_matrix_device(entries, signature_size: int, row_size: int,
                               term_size: int, num_hashes: int,
                               canonicalize: int, warn, device=None,
                               timer: Timer | None = None,
-                              chunk: int = UPDATE_CHUNK) -> np.ndarray:
+                              chunk: int = UPDATE_CHUNK,
+                              mesh=None) -> np.ndarray:
     """The bit matrix of one batch of documents, scattered on `device`
-    (None = settings.device; raises when CUDA is asked for and absent).
+    (None = settings.device; raises when CUDA is asked for and absent),
+    or over the docs shards of `mesh` (a single-process
+    parallel.sharded.Mesh; `device` is then unused).
 
     Same contract and bytes as bitmatrix.build_batch_matrix (reference
     pipeline being matched: cobs/construction/classic_index.cpp:36-189).
@@ -144,11 +171,22 @@ def build_batch_matrix_device(entries, signature_size: int, row_size: int,
     row_size]."""
     if signature_size + 1 > np.iinfo(np.int32).max:
         raise ValueError("signature too large for device construction")
-    dev = resolve_device(device)
-    Wc = max(1, -(-row_size // 4))
-    words = torch.zeros((Wc, signature_size + 1), dtype=torch.int32,
-                        device=dev)
-    ring = _UpdateRing(words, chunk, UPLOAD_BUFFERS, timer)
+    R1 = signature_size + 1
+    if mesh is None:
+        shards = [(torch.zeros((max(1, -(-row_size // 4)), R1),
+                               dtype=torch.int32,
+                               device=resolve_device(device)), 0)]
+    else:
+        if mesh.ranks is not None:
+            raise ValueError("device construction takes a mesh of one "
+                             "process (parallel.distributed.construct "
+                             "builds one index per process)")
+        n_docs = mesh.shape["docs"]
+        Wl = -(-max(row_size * 8, 1) // (32 * n_docs))
+        shards = [(torch.zeros((Wl, R1), dtype=torch.int32,
+                               device=mesh.devices[0][d]), d * 32 * Wl)
+                  for d in range(n_docs)]
+    ring = _UpdateRing(shards, chunk, UPLOAD_BUFFERS, timer)
 
     lock = threading.Lock()
 
@@ -185,12 +223,18 @@ def build_batch_matrix_device(entries, signature_size: int, row_size: int,
     t.active("stage")
     ring.flush()
     t.active("fetch")
-    # one transpose on the device to [signature_size, Wc] rows, then the
-    # pad bytes past row_size cut there too; the words are freed before
-    # the cut, so the device holds at most twice the words
-    rows = torch.empty((signature_size, Wc), dtype=torch.int32,
+    # the shards' strips in docs order (on the first shard's device), one
+    # transpose there to [signature_size, Wc] rows, then the pad bytes
+    # past row_size cut there too; the words are freed before the cut, so
+    # the device holds at most twice the words
+    words = [w for w, _ in shards]
+    ring.shards = shards = None
+    dev = words[0].device
+    words = words[0] if len(words) == 1 else torch.cat(
+        [w.to(dev) for w in words])
+    rows = torch.empty((signature_size, words.shape[0]), dtype=torch.int32,
                        device=dev).copy_(words[:, :signature_size].t())
-    ring.words = words = None
+    words = None
     data = rows.view(torch.uint8)[:, :row_size].contiguous().cpu().numpy()
     t.stop()
     if timer is not None:

@@ -123,6 +123,11 @@ class DocLayout:
             return int(d[0])
         return None
 
+    def with_w32(self, w32: int) -> "DocLayout":
+        """The same doc mapping over another padded page row width (a
+        mesh pads word_width to its alignment)."""
+        return DocLayout(w32, self.page_docs, self.doc_offsets)
+
 
 class _PageLayout:
     """The score layout and device tables shared by `DeviceIndex` and

@@ -18,7 +18,9 @@ Query hashing runs on the index's device by default
 (settings.device_hash).
 Index files above settings.max_device_index_bytes are served by the
 streamed backend (`StreamedIndex`), which a federation may mix with
-device-held indexes.
+device-held indexes. With a mesh (`Search(..., mesh=...)`) every index is
+document-sharded over the mesh's devices (`parallel/sharded.py`) and
+scored cell by cell.
 """
 
 import collections
@@ -28,12 +30,14 @@ import itertools
 import math
 
 import numpy as np
+import torch
 
 from cobs_tpu_torch.fmt.magic import FileIOError
 from cobs_tpu_torch.ops.device_hash import (
     invalid_query_mask,
     validate_queries,
 )
+from cobs_tpu_torch.parallel.sharded import ShardedIndex
 from cobs_tpu_torch.query.engine import (
     DeviceIndex,
     QueryBytes,
@@ -93,7 +97,16 @@ def _open_index(path, device, streamed=None):
 
 
 def _score_async(ix, payload, num_results: int, timer):
-    """Enqueue one batch on one index (top-k when num_results > 0)."""
+    """Enqueue one batch on one index (top-k when num_results > 0); `ix`
+    may be a ShardedIndex."""
+    if isinstance(ix, ShardedIndex):
+        if timer:
+            timer.active("io")
+        pending = (ix.score_topk_async(payload, num_results)
+                   if num_results > 0 else ix.score_batch_async(payload))
+        if timer:
+            timer.stop()
+        return pending
     if isinstance(ix, StreamedIndex):
         return (ix.score_topk_async(payload, num_results, timer)
                 if num_results > 0 else ix.score_batch_async(payload, timer))
@@ -225,22 +238,36 @@ class Search:
     cobs/query/classic_search.cpp:413-435).
     """
 
-    def __init__(self, indices, device=None, streamed=None):
+    def __init__(self, indices, device=None, streamed=None, mesh=None):
         """device: where index paths are loaded or scored (None =
         settings.device). Raises when it names CUDA and CUDA is absent.
         Index objects are used on the device they were made for.
         streamed: True = serve index paths from host mmap
         (StreamedIndex), False = load them onto the device, None = by
-        file size (`_open_index`)."""
+        file size (`_open_index`).
+
+        mesh: a parallel.sharded.Mesh; every index is then document-
+        sharded over its devices (`ShardedIndex`) and `device` is unused.
+        Index paths are read on the host first: streamed=True maps them
+        (each shard's word columns are read from the mmap and uploaded to
+        its own device, so the whole matrix never exists in one buffer),
+        otherwise they load into host memory."""
         if not isinstance(indices, (list, tuple)):
             indices = [indices]
         opened = (DeviceIndex, StreamedIndex)
         paths = [ix for ix in indices if not isinstance(ix, opened)]
-        dev = resolve_device(device) if device is not None or paths \
-            else None
+        if mesh is not None:
+            dev = torch.device("cpu")
+        else:
+            dev = resolve_device(device) if device is not None or paths \
+                else None
         self.index_files = [
             ix if isinstance(ix, opened) else _open_index(ix, dev, streamed)
             for ix in indices]
+        self.mesh = mesh
+        #: per index: its ShardedIndex on the mesh, or the index itself
+        self._scorers = ([ShardedIndex(ix, mesh) for ix in self.index_files]
+                         if mesh is not None else list(self.index_files))
         self.timer_ = Timer()
 
     def timer(self) -> Timer:
@@ -251,18 +278,33 @@ class Search:
         return self.search_batch([query], threshold, num_results)[0]
 
     @staticmethod
-    def _use_device_hash(ix) -> bool:
+    def _use_device_hash(ix, sharded: bool = False) -> bool:
         """Whether queries for index `ix` are hashed on its device:
         settings.device_hash "auto" or "device", row ids that fit the
         hash kernel's int32, and, for a StreamedIndex, device scoring
-        (host scoring needs host row ids). Decided per index, so a
-        federation may hash some indexes on the host."""
+        (host scoring needs host row ids) unless it is `sharded` over a
+        mesh, whose devices hold it. Decided per index, so a federation
+        may hash some indexes on the host."""
         if str(settings.device_hash).lower() not in (
                 "auto", "device", "1", "true"):
             return False
         if not int32_row_ids(ix):
             return False
-        return not (isinstance(ix, StreamedIndex) and ix.scores_on_host())
+        return sharded or not (isinstance(ix, StreamedIndex)
+                               and ix.scores_on_host())
+
+    def _device_hashed(self, ix, qbytes=None) -> bool:
+        """`_use_device_hash` for this Search's batch `qbytes`: on a mesh
+        of more than one "batch" row, a batch that runs the sequence
+        split (a query of at least settings.seq_split_terms terms)
+        hashes on the host, as in cobs_tpu."""
+        if not self._use_device_hash(ix, self.mesh is not None):
+            return False
+        if self.mesh is not None and self.mesh.shape["batch"] > 1 \
+                and qbytes:
+            t_max = max(len(q) for q in qbytes) - ix.term_size + 1
+            return t_max < settings.seq_split_terms
+        return True
 
     def _hash_batch(self, qbytes) -> list:
         """Host stage: per index, a QueryBytes payload (validated and
@@ -276,7 +318,7 @@ class Search:
         self.timer_.active("hashes")
         hashed = []
         for ix in self.index_files:
-            if self._use_device_hash(ix):
+            if self._device_hashed(ix, qbytes):
                 qb, bad = self._query_bytes(ix, qbytes)
                 # raises the reference's error for the first bad query
                 validate_queries([qbytes[b] for b in np.flatnonzero(bad)],
@@ -314,7 +356,7 @@ class Search:
         timer.active("hashes")
         hashed = []
         for ix in self.index_files:
-            if self._use_device_hash(ix):
+            if self._device_hashed(ix, qbytes):
                 qb, bad = self._query_bytes(ix, qbytes)
                 for b in np.flatnonzero(bad):
                     if errors[b] is None:
@@ -361,14 +403,16 @@ class Search:
         for the device (a streamed index in host mode scores on its own
         worker thread); one pending handle per index."""
         return [_score_async(ix, hashed[k], num_results, self.timer_)
-                for k, ix in enumerate(self.index_files)]
+                for k, ix in enumerate(self._scorers)]
 
     def _mega_k(self) -> int:
         """Batches per multi-batch dispatch when the queue is deep
         (settings.mega_batches; 1 = one dispatch per batch). Only when
-        every index is a DeviceIndex: a streamed batch's cost is its host
-        gather, which packing does not divide."""
-        if not all(isinstance(ix, DeviceIndex) for ix in self.index_files):
+        every index is a DeviceIndex, or on a mesh (where every index is
+        held on the devices): a streamed batch's cost is its host gather,
+        which packing does not divide."""
+        if self.mesh is None and not all(isinstance(ix, DeviceIndex)
+                                         for ix in self.index_files):
             return 1
         return max(1, int(settings.mega_batches))
 
@@ -400,8 +444,16 @@ class Search:
         if len(hashed_group) == 1:
             return [self._dispatch_async(hashed_group[0], num_results)]
         per_index = []
-        for kx, ix in enumerate(self.index_files):
+        for kx, ix in enumerate(self._scorers):
             payloads = [hashed[kx] for hashed in hashed_group]
+            if isinstance(ix, ShardedIndex):
+                self.timer_.active("io")
+                per_index.append(
+                    ix.score_topk_multi_async(payloads, num_results)
+                    if num_results > 0
+                    else ix.score_batch_multi_async(payloads))
+                self.timer_.stop()
+                continue
             per_index.append(
                 score_topk_multi_async(ix, payloads, num_results,
                                        self.timer_) if num_results > 0
@@ -469,7 +521,7 @@ class Search:
         """
         it = iter(queries)
         ahead = _HASH_AHEAD["device" if all(
-            self._use_device_hash(ix) for ix in self.index_files)
+            self._device_hashed(ix) for ix in self.index_files)
             else "host"]
 
         def hash_next():

@@ -209,7 +209,8 @@ class QueryServer:
     Parameters
     ----------
     search : Search | index path(s)
-        An open `Search` (device-held or streamed indexes) or what its
+        An open `Search` (device-held, streamed or mesh-sharded
+        indexes) or what its
         constructor takes (then opened on settings.device, CUDA by
         default).
     unix_path : str | None
@@ -338,8 +339,11 @@ class QueryServer:
                                           self._send_queue)
         self._fmt = native.ResultFormatter(search._names)
         # the card the scorer makes current: a streamed index may name
-        # "cuda" without an index, which means the binding thread's card
-        dev = search.index_files[0].device
+        # "cuda" without an index, which means the binding thread's card;
+        # on a mesh, the first cell's (each launch then makes its own
+        # cell's device current)
+        dev = (search.mesh.devices[0][0] if search.mesh is not None
+               else search.index_files[0].device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         self._device = dev

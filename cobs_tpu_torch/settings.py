@@ -5,7 +5,9 @@ the device that holds the index and runs construction's bit scatter, the
 host worker threads, whether document caches are written, when an index
 is streamed from host mmap instead of held on the device, where the
 streamed backend scores, where query hashing runs, and how many batches
-one multi-batch dispatch packs. The TPU package's other dispatch knobs
+one multi-batch dispatch packs, the mesh of device construction and the
+term count at which a query on a mesh splits its terms over the mesh's
+"batch" axis. The TPU package's other dispatch knobs
 (hash-ahead depth, dispatch groups, tier fetch) worked around its slow
 host link and have no counterpart here.
 """
@@ -56,6 +58,18 @@ class Settings:
     #! index is a DeviceIndex.
     mega_batches: int = dataclasses.field(default_factory=lambda: int(
         os.environ.get("COBS_TPU_MEGA_BATCHES", "16")))
+    #! mesh for device construction (parallel.sharded.Mesh): each "docs"
+    #! shard of a batch's words lives on its own device and takes the
+    #! updates of its documents; None = every visible CUDA card on the
+    #! docs axis when more than one is visible, else the one device
+    construct_mesh: object = None
+    #! sequence split: a query on a mesh whose term count reaches this is
+    #! split over the mesh's "batch" axis (each "batch" row counts a
+    #! slice of its terms; the partial counts are summed), so a long
+    #! query keeps the whole mesh busy. Terms per query are L - k + 1,
+    #! so this triggers for ~64 kbp queries by default.
+    seq_split_terms: int = dataclasses.field(default_factory=lambda: int(
+        os.environ.get("COBS_TPU_SEQ_SPLIT_TERMS", 1 << 16)))
 
 
 settings = Settings()

@@ -51,6 +51,7 @@ def _settings(monkeypatch):
         monkeypatch.setattr(s, "disable_cache", True)
         monkeypatch.setattr(s, "threads", 2)
     monkeypatch.setattr(jax_settings, "construct_mesh", None)
+    monkeypatch.setattr(settings, "construct_mesh", None)
 
 
 def _corpus(tmp_path, n_docs=20, seed=0, equal_sizes=False) -> Path:
@@ -215,6 +216,87 @@ def test_plain_scatter_matches_cobs_tpu_device_build(tmp_path):
                                         chunk=chunk, timer=timer)
         assert got.dtype == np.uint8 and got.shape == (sig, row_size)
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n_batch,n_docs", [(1, 8), (2, 4)])
+def test_batch_matrix_mesh_matches_cobs_tpu(tmp_path, monkeypatch, n_batch,
+                                            n_docs):
+    """tests/test_device_construct.py::test_batch_matrix_device_identical
+    [8]: the build over the docs shards of a mesh of the CPU device
+    against cobs_tpu's build over its 8-device mesh and the host scatter.
+    Each shard gets every chunk (updates of other shards' documents
+    included, which its scatter drops) as word-major int32 [Wl, sig + 1],
+    with its documents shifted by its base."""
+    from cobs_tpu.parallel.sharded import make_mesh as jax_make_mesh
+    from cobs_tpu_torch.construct import device as dev_mod
+    from cobs_tpu_torch.parallel.sharded import make_mesh
+
+    docs = _corpus(tmp_path, n_docs=20)
+    entries = ct.DocumentList(docs).list()
+    jentries = cobs_tpu.DocumentList(docs).list()
+    sig, row_size = 4099, -(-len(entries) // 8)
+    want = jax_build_device(jentries, sig, row_size, 31, 2, 1,
+                            lambda m: None, mesh=jax_make_mesh(1, 8))
+    np.testing.assert_array_equal(
+        want, build_batch_matrix(entries, sig, row_size, 31, 2, 1,
+                                 lambda m: None))
+    seen = []
+    real = dev_mod.construct_scatter
+
+    def spy(words, rows, docs_):
+        seen.append((tuple(words.shape), int(docs_.min()),
+                     int(docs_.max())))
+        return real(words, rows, docs_)
+
+    monkeypatch.setattr(dev_mod, "construct_scatter", spy)
+    mesh = make_mesh(n_batch, n_docs, ["cpu"] * 8)
+    for chunk in (1000, 1 << 22):
+        seen.clear()
+        got = build_batch_matrix_device(entries, sig, row_size, 31, 2, 1,
+                                        lambda m: None, chunk=chunk,
+                                        mesh=mesh)
+        np.testing.assert_array_equal(got, want)
+        Wl = -(-row_size * 8 // (32 * n_docs))
+        assert {shape for shape, _, _ in seen} == {(Wl, sig + 1)}
+        assert len(seen) % n_docs == 0
+        # the last shards' chunks hold documents below their base
+        assert min(lo for _, lo, _ in seen) < 0
+
+
+@pytest.mark.parametrize("kind", ["classic", "compact"])
+def test_construct_mesh_setting_identical_files(tmp_path, kind):
+    """tests/test_device_construct.py::test_driver_device_construct_
+    identical_files: with settings.construct_mesh a mesh of 8 shards, the
+    classic and compact drivers write cobs_tpu's files (built over its
+    own 8-device mesh) and the host scatter's, byte for byte; without it,
+    the CPU builds on its one device."""
+    from cobs_tpu.parallel.sharded import make_mesh as jax_make_mesh
+    from cobs_tpu_torch.construct.classic import _construct_mesh
+    from cobs_tpu_torch.parallel.sharded import make_mesh
+
+    assert _construct_mesh("cpu") is None
+    docs = _corpus(tmp_path, n_docs=24)
+    jax_settings.construct_mesh = jax_make_mesh(1, 8)
+    settings.construct_mesh = make_mesh(1, 8, ["cpu"] * 8)
+    assert _construct_mesh("cpu") is settings.construct_mesh
+    out = {}
+    for who, how in (("jax", "device"), ("torch", "device"),
+                     ("torch", "host")):
+        path = tmp_path / f"{who}-{how}.cobs_{kind}"
+        pkg = cobs_tpu if who == "jax" else ct
+        P = (pkg.ClassicIndexParameters if kind == "classic"
+             else pkg.CompactIndexParameters)
+        extra = {} if kind == "classic" else {"page_size": 1}
+        if who == "torch":
+            extra.update(device="cpu")
+        params = P(num_hashes=2, clobber=True,
+                   device_construct=how == "device", **extra)
+        build = (pkg.classic_construct if kind == "classic"
+                 else pkg.compact_construct)
+        build(pkg.DocumentList(docs), path, index_params=params)
+        out[who, how] = path.read_bytes()
+    assert out["torch", "device"] == out["jax", "device"] == \
+        out["torch", "host"]
 
 
 def test_device_build_workers_stress(tmp_path, monkeypatch):

@@ -146,10 +146,61 @@ def test_cmd_query_stdout_matches_cobs_tpu(capsys, tmp_path, args):
     assert got == want and got
 
 
+@pytest.mark.parametrize("args", [
+    ["-t", "0", GOLDEN_QUERY],
+    ["-l", "2", "-t", "0.1", GOLDEN_QUERY],
+    ["-f", "QUERIES", "-t", "0.2"],
+])
+def test_cmd_query_mesh_matches_cobs_tpu(capsys, tmp_path, args):
+    """`query --mesh 1` shards each index over the first visible device of
+    --device and prints cobs_tpu's lines; `--mesh 2` on one visible
+    device (the CPU) raises in `query` and `serve`, never serving on
+    fewer devices."""
+    qf = tmp_path / "q.fa"
+    qf.write_text(f">first\n{GOLDEN_QUERY}\n>second one\n"
+                  f"{GOLDEN_QUERY[3:]}\n")
+    args = [str(qf) if a == "QUERIES" else a for a in args]
+    index = ["-i", str(GOLDEN["classic"]), "-i", str(GOLDEN["compact"])]
+    assert jax_main(["query", *index, *args]) == 0
+    want = capsys.readouterr().out
+    assert torch_main(["query", *index, "--device", "cpu", "--mesh", "1",
+                       *args]) == 0
+    got = capsys.readouterr().out
+    assert got == want and got
+    for cmd in (["query", *index, *args],
+                ["serve", *index, "--socket", str(tmp_path / "s.sock")]):
+        assert torch_main([*cmd, "--device", "cpu", "--mesh", "2"]) == 1
+        captured = capsys.readouterr()
+        assert captured.out == ""
+        assert "ERROR: mesh needs 2 devices, only 1 available" in \
+            captured.err
+    assert not (tmp_path / "s.sock").exists()
+
+
+def test_cmd_benchmark_scaling(capsys):
+    """`benchmark-scaling` (cobs_tpu/cli/main.py:1000): RESULT lines that
+    name the distinct devices beside the shards, no cross-device copy and
+    no exchange per batch; -n beyond the visible devices raises."""
+    args = ["benchmark-scaling", "--device", "cpu", "--sig-size", "1024",
+            "--docs-per-shard", "64", "-b", "2", "--num-kmers", "64",
+            "--iterations", "2", "--batch-sweep", "1,2"]
+    assert torch_main([*args, "-n", "1"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("RESULT shards=1 distinct_devices=1 batch=2 ")
+    assert out[0].endswith(" cross_device_copies_per_batch=0 "
+                           "exchanges_per_batch=0")
+    assert [line.split()[1] for line in out[1:]] == [
+        "batch_sweep", "batch_sweep", "mesh_mega", "cost_model"]
+    assert torch_main([*args, "-n", "2"]) == 1
+    assert "mesh needs 2 devices, only 1 available" in \
+        capsys.readouterr().err
+
+
 def test_imports_and_answers_without_jax():
-    """Every module of the port imports with jax and cobs_tpu blocked, and
-    the port builds an index from the golden corpus and answers from it:
-    the card's machine has no JAX."""
+    """Every module of the port, parallel/* included, imports with jax and
+    cobs_tpu blocked, and the port builds an index from the golden corpus
+    and answers from it, on one device and sharded over a mesh: the
+    card's machine has no JAX."""
     code = f"""
 import sys
 sys.modules["jax"] = None
@@ -159,12 +210,19 @@ from pathlib import Path
 import cobs_tpu_torch
 for m in pkgutil.walk_packages(cobs_tpu_torch.__path__, "cobs_tpu_torch."):
     importlib.import_module(m.name)
+assert {{"cobs_tpu_torch.parallel." + m for m in (
+    "sharded", "distributed", "benchmark", "dryrun")}} <= set(sys.modules)
 from cobs_tpu_torch.cli.main import main
 from cobs_tpu_torch.ops import _build
+from cobs_tpu_torch.parallel.sharded import make_mesh
 cobs_tpu_torch.disable_cache()
 s = cobs_tpu_torch.Search({str(GOLDEN["classic"])!r}, device="cpu")
 got = [(r.doc_name, r.score) for r in s.search({GOLDEN_QUERY!r}, 0.0)]
 assert got == {GOLDEN_LINES!r}, got
+s = cobs_tpu_torch.Search({str(GOLDEN["compact"])!r},
+                          mesh=make_mesh(2, 2, ["cpu"] * 4))
+got = [(r.doc_name, r.score) for r in s.search({GOLDEN_QUERY!r}, 0.0, 3)]
+assert got == {GOLDEN_LINES[:3]!r}, got
 tmp = Path(tempfile.mkdtemp())
 shutil.copytree({str(DATA / "fasta")!r}, tmp / "fasta",
                 ignore=shutil.ignore_patterns("*.cobs_cache"))

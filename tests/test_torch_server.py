@@ -1,11 +1,10 @@
 """cobs_tpu_torch QueryServer, QueryClient and `cobs serve` against
 cobs_tpu's Search, on the CPU.
 
-The counterpart of tests/test_server.py, test for test (the mesh-sharded
-server waits for the port's multi-GPU slice): every protocol path of the
-port's server, over device-held and streamed indexes, answers exactly
-what cobs_tpu's embedded `Search` returns on the same file, tie order
-included. Indexes are built by cobs_tpu as tests/test_server.py builds
+The counterpart of tests/test_server.py, test for test: every protocol
+path of the port's server, over device-held, streamed and mesh-sharded
+indexes, answers exactly what cobs_tpu's embedded `Search` returns on the
+same file, tie order included. Indexes are built by cobs_tpu as tests/test_server.py builds
 them. Servers here score on the CPU (`Search(..., device="cpu")`,
 `serve --device cpu`), where each kernel wrapper runs its plain version.
 Every socket read times out within 30 s and every wait is bounded.
@@ -602,6 +601,38 @@ def test_server_streamed_backend(index_file, tmp_path, score):
             assert r["results"] == expected(direct, GOLDEN_QUERY,
                                             (0.0, 0.8)[i % 2])
         assert c.ask({"cmd": "stats"})["mega_dispatches"] == 0
+        c.close()
+
+
+@pytest.mark.parametrize("n_batch,n_docs,num_results",
+                         [(1, 4, 0), (2, 2, 5)])
+def test_server_mesh_sharded(index_file, tmp_path, n_batch, n_docs,
+                             num_results):
+    """tests/test_server.py::test_server_mesh_sharded: the server over a
+    Search sharded on a mesh of the CPU device, full ranking and top-k:
+    single requests, then a pipelined burst that forms multi-batch groups
+    over the mesh; every answer equals cobs_tpu's."""
+    from cobs_tpu_torch.parallel.sharded import make_mesh
+
+    mesh = make_mesh(n_batch, n_docs, ["cpu"] * (n_batch * n_docs))
+    s = Search(index_file, mesh=mesh)
+    direct = cobs_tpu.Search(index_file)
+    with _server(s, tmp_path, "m.sock", batch_size=4,
+                 num_results=num_results) as srv:
+        assert srv._mega > 1
+        c = Client(srv.address)
+        for i in range(3):
+            r = c.ask({"id": i, "query": GOLDEN_QUERY, "threshold": 0.8})
+            assert r["results"] == expected(direct, GOLDEN_QUERY, 0.8,
+                                            num_results)
+        queries = [GOLDEN_QUERY[j:] for j in range(12)] * 4
+        for i, q in enumerate(queries):
+            c.send({"id": i, "query": q, "threshold": (0.0, 0.8)[i % 2]})
+        for i, q in enumerate(queries):
+            r = c.recv()
+            assert r["id"] == i
+            assert r["results"] == expected(direct, q, (0.0, 0.8)[i % 2],
+                                            num_results)
         c.close()
 
 
