@@ -147,7 +147,31 @@ torch.cuda.synchronize():
    quick-check entry points: `parallel.dryrun.entry()`'s step against
    K1's plain version, and `dryrun_multichip(4, [cuda:0] * 4)` (the
    scatter and K1 on 8-word shards after the transpose, checked against
-   numpy, and the serving surface over a (2, 2) mesh).
+   numpy, and the serving surface over a (2, 2) mesh);
+13. the rest of the CLI and the cobs_index_torch shim, inside phase 10
+   before its corpus is deleted, on its 1,000 documents and the classic
+   and compact indexes built there on the card; the CLI runs as
+   `python -m cobs_tpu_torch.cli.main` subprocesses. (a) `doctor`, (b)
+   `info --scan` on both indexes and on a copy of the classic one cut
+   short by 50 B, and two `generate-queries` runs, all started together:
+   doctor exits 0 with DEVICE OK naming the card, NATIVE OK and all 4
+   kernel sources built; info's documents, signature size and row size
+   lines match the file's header and the ones ratio max is at most 0.31
+   (fpr 0.3); the short copy exits 1 with `corrupt`. (c) 512 positives of
+   31 bp (`-p 512 -s 31 -S 1`) through `query -f -t 1.0`: each finds the
+   document named in its header, and the stdout equals, line for line,
+   the same file ranked by streamed host scoring; the hash kernel and K1
+   at that shape (B=512, one term, the index's 128 words) on the index
+   held in this process equal their plain versions. (d) 512 positives
+   padded to 1,030 bp and 512 random negatives (`-p 512 -n 512 -s 1030
+   -S 2`) through `query -f -t 0 -l 100 --profile DIR`: its stdout equals,
+   line for line, the same file ranked by streamed host scoring (the
+   native host scorer, no kernel), and the trace in DIR holds
+   gather_count_kernel and device_hash_kernel events. (e) The reference's
+   Python API test through cobs_index_torch on the card, its kernel counts
+   at 0 just before: DocumentList, classic_construct and
+   compact_construct on a copy of tests/data/fasta give the golden files,
+   and Search gives the reference's lines. Prints each step's seconds.
 
 Prints the card's name and power limit, the build times, the times, then
 a JSON line of the kernels and, last, the device JSON line. Any failure
@@ -1183,10 +1207,11 @@ def construct_timed(build, docs, out: Path, params) -> tuple[float, dict]:
     return time.perf_counter() - t0, construct_stages(err.getvalue())
 
 
-def phase_construct(torch, cs, card: str, n_docs: int = CONSTRUCT_DOCS,
+def phase_construct(torch, cs, qk, dh, card: str,
+                    n_docs: int = CONSTRUCT_DOCS,
                     lengths=CONSTRUCT_LENGTHS) -> dict:
-    """Phase 10: construction at a bacterial collection's shape; see the
-    module docstring."""
+    """Phase 10: construction at a bacterial collection's shape, then
+    phase 13 on its corpus and indexes; see the module docstring."""
     root = ROOT / "bench_data" / "construct"
     shutil.rmtree(root, ignore_errors=True)
     t0 = time.perf_counter()
@@ -1194,7 +1219,9 @@ def phase_construct(torch, cs, card: str, n_docs: int = CONSTRUCT_DOCS,
     print(f"phase 10 wrote {n_docs} FASTA documents, {sum(lens)} bp, in "
           f"{time.perf_counter() - t0:.1f} s")
     try:
-        return _phase_construct(torch, cs, card, root, lens)
+        con = _phase_construct(torch, cs, card, root, lens)
+        con["cli"] = phase_cli(torch, qk, dh, cs, card, root)
+        return con
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1399,6 +1426,261 @@ def _phase_construct(torch, cs, card, root: Path, lens) -> dict:
             "ms": kernel_ms, "plain_ms": timing["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "control_ms": timing["control_ms"], "sharded": sharded}
+
+
+#: phase 13's generated queries: (c) CLI_QUERIES positives of one term;
+#: (d) as many positives padded to CLI_QUERY_LEN with random bases and as
+#: many random negatives
+CLI_QUERIES, CLI_QUERY_LEN = 512, 1030
+
+
+def run_cli(args) -> tuple:
+    """(process, wall seconds) of `python -m cobs_tpu_torch.cli.main
+    ARGS` run from the checkout's root, output captured."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "cobs_tpu_torch.cli.main", *map(str, args)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    return proc, time.perf_counter() - t0
+
+
+def cli_ok(proc, what: str) -> str:
+    require(proc.returncode == 0, f"phase 13 {what}: exit {proc.returncode}"
+                                  f"\n{proc.stdout[-2000:]}"
+                                  f"\n{proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def cli_blocks(lines: list) -> list:
+    """[(comment, [(doc, score), ...]), ...] of `query -f` output lines."""
+    out, i = [], 0
+    while i < len(lines):
+        comment, count = lines[i].rsplit("\t", 1)
+        res = [tuple(x.split("\t")) for x in lines[i + 1:i + 1 + int(count)]]
+        out.append((comment, [(d, int(s)) for d, s in res]))
+        i += 1 + int(count)
+    return out
+
+
+def host_lines(ct, path: Path, comments: list, queries: list,
+               threshold: float, limit: int) -> list:
+    """The lines `query -f` prints for these queries, ranked by the
+    native host scorer (`Search(path, streamed=True)` under
+    streamed_host_score "host"), which launches neither kernel."""
+    old = ct.settings.streamed_host_score
+    ct.settings.streamed_host_score = "host"
+    try:
+        results = ct.Search(str(path), streamed=True).search_batch(
+            queries, threshold, limit)
+    finally:
+        ct.settings.streamed_host_score = old
+    lines = []
+    for comment, res in zip(comments, results):
+        lines.append(f"{comment}\t{len(res)}")
+        lines.extend(f"{r.doc_name}\t{r.score}" for r in res)
+    return lines
+
+
+def phase_cli(torch, qk, dh, cs, card: str, root: Path) -> dict:
+    """Phase 13, on phase 10's corpus and indexes before they are deleted:
+    the CLI in subprocesses and the cobs_index_torch shim in this process;
+    see the module docstring."""
+    import json
+
+    import cobs_index_torch as cobs
+    import cobs_tpu_torch as ct
+    from cobs_tpu_torch.cli.main import PROFILE_TRACE, _read_fasta_queries
+    from cobs_tpu_torch.fmt.classic import read_classic_header
+    from cobs_tpu_torch.ops import _build
+    from cobs_tpu_torch.query import engine
+
+    t_phase = time.perf_counter()
+    docs, work = root / "docs", root / "cli"
+    work.mkdir()
+    classic = root / "device.cobs_classic"
+    compact = root / "device.cobs_compact"
+    trunc = work / "trunc.cobs_classic"
+    shutil.copyfile(classic, trunc)
+    os.truncate(trunc, trunc.stat().st_size - 50)
+    q1, q2, trace_dir = work / "q1.fa", work / "q2.fa", work / "profile"
+    # (a), (b) and the two generate-queries runs, all started together
+    jobs = {
+        "doctor": ["doctor", "--timeout", "300"],
+        "info classic": ["info", classic, "--scan"],
+        "info compact": ["info", compact, "--scan"],
+        "info truncated": ["info", trunc, "--scan"],
+        "generate-queries q1": ["generate-queries", docs, "-p", CLI_QUERIES,
+                                "-s", 31, "-S", 1, "-o", q1],
+        "generate-queries q2": ["generate-queries", docs, "-p", CLI_QUERIES,
+                                "-n", CLI_QUERIES, "-s", CLI_QUERY_LEN,
+                                "-S", 2, "-o", q2],
+    }
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {name: pool.submit(run_cli, args)
+                   for name, args in jobs.items()}
+        done = {name: f.result() for name, f in futures.items()}
+    secs = {name: wall for name, (_, wall) in done.items()}
+
+    out = cli_ok(done["doctor"][0], "doctor").splitlines()
+    name = torch.cuda.get_device_name(0)
+    n_src = len(_build.SOURCES)
+    require(any(x.startswith("DEVICE OK: ") and f"x {name} (cuda)" in x
+                for x in out), f"phase 13 doctor: no DEVICE OK for {name}")
+    require(any(x.startswith("NATIVE OK") for x in out),
+            "phase 13 doctor: no NATIVE OK")
+    kernels = [x for x in out if x.startswith("KERNELS: ")]
+    require(len(kernels) == 1 and f"; {n_src} of {n_src} sources built"
+            in kernels[0], f"phase 13 doctor: {kernels}")
+    doctor_lines = [x for x in out if x.startswith(("DEVICE", "IO_URING"))]
+
+    hdr = read_classic_header(classic)
+    info = cli_ok(done["info classic"][0], "info classic").splitlines()
+    for want in (f"documents       {len(hdr.file_names)}",
+                 f"signature size  {hdr.signature_size} bits",
+                 f"row size        {hdr.row_size} B "):
+        require(any(x.startswith(want) for x in info),
+                f"phase 13 info classic: no line {want!r}")
+    ratio = [x for x in info if x.startswith("ones ratio")]
+    classic_max = float(ratio[0].split()[-1])
+    info = cli_ok(done["info compact"][0], "info compact").splitlines()
+    compact_max = float([x for x in info
+                         if x.startswith("ones ratio")][0].split()[-1])
+    require(0 < classic_max <= 0.31 and 0 < compact_max <= 0.31,
+            f"phase 13 info: ones ratio max {classic_max}, {compact_max} "
+            "over fpr 0.3")
+    bad = done["info truncated"][0]
+    require(bad.returncode == 1 and "corrupt classic index" in bad.stderr,
+            f"phase 13 info on a truncated file: exit {bad.returncode}, "
+            f"{bad.stderr[-500:]}")
+    trunc.unlink()
+    for q in ("q1", "q2"):
+        cli_ok(done[f"generate-queries {q}"][0], f"generate-queries {q}")
+
+    # (c) every positive finds its source document at -t 1.0 (K1 at T=1),
+    # and stdout == the native host scorer's ranking of the same file
+    proc, secs["query q1"] = run_cli(["query", "-i", classic, "-f", q1,
+                                      "-t", "1.0"])
+    out = cli_ok(proc, "query q1").splitlines()
+    got = cli_blocks(out)
+    require(len(got) == CLI_QUERIES, f"phase 13 query q1: {len(got)} "
+                                     "results")
+    for comment, res in got:
+        # comment: *doc:<doc id>:term:<pos>:<document name>
+        src = comment.split(":")[-1]
+        require(comment.startswith("*doc:") and (src, 1) in res,
+                f"phase 13 query q1: {comment} did not find {src}")
+    q1_comments, q1_queries = _read_fasta_queries(q1)
+    t0 = time.perf_counter()
+    require(out == host_lines(ct, classic, q1_comments, q1_queries, 1.0, 0),
+            "phase 13 query q1: stdout != host scoring's ranking")
+    secs["host scoring of q1"] = time.perf_counter() - t0
+    # ... and K1 and the hash kernel at q1's shape on the held index,
+    # against their plain versions
+    t0 = time.perf_counter()
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    ix = ct.Search(str(classic)).index_files[0]
+    require(isinstance(ix, engine.DeviceIndex),
+            "phase 13: the classic index was not held on the card")
+    qdata, qlens = engine._device_hash_args(
+        ix, engine.QueryBytes([q.encode() for q in q1_queries]))
+    hash_args = (qdata, qlens, ix.term_size, ix.num_hashes, ix.canonicalize,
+                 *ix.page_tables[:2], ix.zero_row, ix.page_tables[2])
+    rows = dh.rows_from_queries(*hash_args)
+    require(torch.equal(rows, dh.rows_from_queries_reference(*hash_args)),
+            "phase 13 q1: hash kernel != plain")
+    got_k1 = qk.gather_and_count(ix.matrix, rows, ix.num_hashes)
+    want_k1 = qk.gather_and_count_reference(ix.matrix, rows, ix.num_hashes)
+    q1_shape = (f"B={rows.shape[0]}, T={rows.shape[1]}, "
+                f"W={ix.matrix.shape[1]}, "
+                f"{qk.plan_gather_count(*rows.shape, ix.matrix.shape[1], sm)}")
+    require(torch.equal(got_k1, want_k1), f"phase 13 q1: K1 != plain "
+                                          f"({q1_shape}), "
+                                          f"{max_err(got_k1, want_k1)}")
+    torch.cuda.synchronize()
+    del ix, qdata, qlens, rows, got_k1, want_k1
+    torch.cuda.empty_cache()
+    secs["q1 kernels against plain"] = time.perf_counter() - t0
+
+    # (d) the full-width query file under the profiler: stdout == the
+    # native host scorer's ranking (streamed, no kernel) on the same file
+    proc, secs["query q2 --profile"] = run_cli(
+        ["query", "-i", classic, "-f", q2, "-t", "0", "-l", 100,
+         "--profile", trace_dir])
+    got = cli_ok(proc, "query q2 --profile").splitlines()
+    comments, queries = _read_fasta_queries(q2)
+    require(len(queries) == 2 * CLI_QUERIES and all(
+        len(q) == CLI_QUERY_LEN for q in queries),
+        "phase 13 generate-queries q2: wrong queries")
+    t0 = time.perf_counter()
+    require(got == host_lines(ct, classic, comments, queries, 0.0, 100),
+            "phase 13 query q2: stdout != host scoring's ranking")
+    secs["host scoring of q2"] = time.perf_counter() - t0
+    pos = sum(c.startswith("*doc:") for c in comments)
+    trace = json.loads((trace_dir / PROFILE_TRACE).read_text())
+    in_trace = {k: sum(1 for e in trace["traceEvents"]
+                       if e.get("cat") == "kernel" and k in e.get("name", ""))
+                for k in ("gather_count_kernel", "device_hash_kernel")}
+    require(all(in_trace.values()), f"phase 13 trace: kernels {in_trace}")
+
+    # (e) the reference's Python API test through cobs_index_torch on the
+    # card, its kernels counted from 0
+    t0 = time.perf_counter()
+    fasta = work / "fasta"
+    shutil.copytree(ROOT / "tests" / "data" / "fasta", fasta,
+                    ignore=shutil.ignore_patterns("*.cobs_cache"))
+    old = ct.settings.disable_cache
+    qk.LAUNCHES = dh.LAUNCHES = cs.LAUNCHES = 0
+    try:
+        cobs.disable_cache()
+        require(cobs.DocumentList(fasta).size() == 7, "phase 13 shim: "
+                                                      "DocumentList")
+        for kind in ("classic", "compact"):
+            p = getattr(cobs, f"{kind.capitalize()}IndexParameters")()
+            p.clobber = True
+            out_file = work / f"python_test.cobs_{kind}"
+            getattr(cobs, f"{kind}_construct")(
+                input=str(fasta), out_file=out_file, index_params=p)
+            r = cobs.Search(str(out_file)).search(GOLDEN_QUERY)
+            require(pairs([r]) == [GOLDEN_LINES], f"phase 13 shim {kind}: "
+                                                  f"{pairs([r])}")
+            require(out_file.read_bytes() == (
+                GOLDEN_DIR / f"fasta7.cobs_{kind}").read_bytes(),
+                f"phase 13 shim {kind}: file != the golden file")
+        torch.cuda.synchronize()
+    finally:
+        ct.settings.disable_cache = old
+    shim = {"gather_and_count": qk.LAUNCHES, "rows_from_queries": dh.LAUNCHES,
+            "construct_scatter": cs.LAUNCHES}
+    require(all(shim.values()), f"phase 13 shim: launches {shim}")
+    secs["shim"] = time.perf_counter() - t0
+    shutil.rmtree(work, ignore_errors=True)
+    secs["phase"] = time.perf_counter() - t_phase
+
+    print(f"phase 13 doctor ({card}): " + "; ".join(doctor_lines)
+          + f"; {kernels[0]}")
+    print(f"phase 13 info --scan: classic ones ratio max {classic_max:.6f}, "
+          f"compact max over pages {compact_max:.6f} (fpr 0.3); header "
+          "lines match the file; truncated by 50 B: exit 1, corrupt")
+    print(f"phase 13 generate-queries over {len(hdr.file_names)} documents: "
+          f"q1 {CLI_QUERIES} positives of 31 bp in "
+          f"{secs['generate-queries q1']:.2f} s; q2 {pos} positives padded "
+          f"to {CLI_QUERY_LEN} bp + {len(queries) - pos} negatives in "
+          f"{secs['generate-queries q2']:.2f} s (run together with doctor "
+          "and info)")
+    print(f"phase 13 query -f q1 -t 1.0: every one of {CLI_QUERIES} "
+          f"positives found its source document, stdout == streamed host "
+          f"scoring's; K1 and the hash kernel == plain at q1's shape "
+          f"({q1_shape}); query -f q2 -t 0 -l 100 "
+          f"--profile: {len(queries)} queries, stdout == streamed host "
+          f"scoring's; trace: {in_trace['gather_count_kernel']} "
+          f"gather_count_kernel, {in_trace['device_hash_kernel']} "
+          "device_hash_kernel events")
+    print(f"phase 13 cobs_index_torch on the card: the reference's API test "
+          f"(DocumentList, classic_construct, compact_construct, Search) "
+          f"gives the golden lines and files; launches {shim}")
+    print(f"phase 13 seconds ({card}): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
+    return {"shim": shim, "trace": in_trace, "secs": secs}
 
 
 def sock_dir() -> Path:
@@ -2538,7 +2820,7 @@ def main() -> int:
 
     phase_construct_edges(torch, cs, build_batch_matrix_device)
     phase_construct_golden(torch, cs, cli_main)
-    con = phase_construct(torch, cs, card)
+    con = phase_construct(torch, cs, qk, dh, card)
     torch.cuda.empty_cache()
 
     phase_serve_cli(QueryClient)
@@ -2548,6 +2830,7 @@ def main() -> int:
     mesh = phase_sharded(torch, qk, dh, engine, Search, QueryClient,
                          settings, cli_main, card)
     con_mesh = con.pop("sharded")
+    cli = con.pop("cli")
 
     entries = {
         "gather_and_count": dict(
@@ -2560,6 +2843,8 @@ def main() -> int:
             sharded_stream_launches=mesh["stream_launches"][0],
             sharded_batches=mesh["batches"],
             sharded_streamed_launches=mesh["streamed_launches"],
+            cli_shim_launches=cli["shim"]["gather_and_count"],
+            cli_trace_kernels=cli["trace"]["gather_count_kernel"],
             shard_ms=mesh["k1"]["ms"], shard_plain_ms=mesh["k1"]["plain_ms"],
             shard_bound_ms=mesh["k1"]["bound_ms"], **ref["k1"]),
         "rows_from_queries": dict(
@@ -2571,6 +2856,8 @@ def main() -> int:
             sharded_launches=mesh["launches"][1],
             sharded_stream_launches=mesh["stream_launches"][1],
             sharded_batches=mesh["batches"],
+            cli_shim_launches=cli["shim"]["rows_from_queries"],
+            cli_trace_kernels=cli["trace"]["device_hash_kernel"],
             shard_ms=mesh["hash"]["ms"],
             shard_plain_ms=mesh["hash"]["plain_ms"],
             shard_bound_ms=mesh["hash"]["bound_ms"],
@@ -2582,6 +2869,7 @@ def main() -> int:
         "construct_scatter": dict(
             max_abs_err=0, library_ms=None,
             sharded_launches=con_mesh["launches"],
+            cli_shim_launches=cli["shim"]["construct_scatter"],
             shard_ms=con_mesh["ms"], shard_plain_ms=con_mesh["plain_ms"],
             shard_bound_ms=con_mesh["bound_ms"], **con),
     }

@@ -1,9 +1,8 @@
-"""`cobs` command line of the PyTorch port: the document tools, index
-construction, `query`, `benchmark-fpr`, `serve` and `benchmark-scaling`.
-
-Same flags, defaults and output as those subtools in cobs_tpu/cli/main.py
+"""`cobs` command line of the PyTorch port: the 16 subtools of
+cobs_tpu/cli/main.py, with the same flags, defaults and output
 (reference: src/cobs.cpp:970-1016), plus `--device` where a command uses
-the device:
+the device. `info` differs only in its page-size `hint:` line, and
+`doctor` probes a torch device and reports the CUDA kernels' builds:
 
     python -m cobs_tpu_torch.cli.main doc-list PATH [--file-type any] [-k 31]
     python -m cobs_tpu_torch.cli.main doc-dump PATH [-k 31] \\
@@ -20,7 +19,7 @@ the device:
     python -m cobs_tpu_torch.cli.main repack IN OUT [-p 0] [--clobber]
     python -m cobs_tpu_torch.cli.main query -i INDEX [-t 0.8] [-l 0] \\
         [--streamed | --load-complete] [-T THREADS] [--device cuda] \\
-        [--mesh N] (QUERY | -f QUERIES.fa)
+        [--mesh N] [--profile DIR] (QUERY | -f QUERIES.fa)
     python -m cobs_tpu_torch.cli.main benchmark-fpr INDEX [-q 10000] \\
         [-k 1000] [-b 64] [-l 0] [--streamed] [--cold] [--device cuda]
     python -m cobs_tpu_torch.cli.main serve -i INDEX [--socket PATH | \\
@@ -32,6 +31,13 @@ the device:
         [--docs-per-shard 4096] [--sig-size 262144] [-b 16] \\
         [--num-kmers 1000] [--iterations 10] [--batch-sweep B,B] \\
         [--device cuda]
+    python -m cobs_tpu_torch.cli.main info INDEX [--scan]
+    python -m cobs_tpu_torch.cli.main doctor [--timeout 60] [--device cuda]
+    python -m cobs_tpu_torch.cli.main print-parameters [-h 1] [-f 0.3] \\
+        [-n NUM_ELEMENTS]
+    python -m cobs_tpu_torch.cli.main print-kmers QUERY [-k 31]
+    python -m cobs_tpu_torch.cli.main generate-queries PATH [-k 31] \\
+        [-p POSITIVE] [-n NEGATIVE] [-N] [-s SIZE] [-S SEED] [-o OUT]
 
 Construction sets the Bloom bits on the device (the bit scatter kernel on
 a CUDA card; `--device cpu` runs its plain version); `--device-construct`
@@ -43,8 +49,10 @@ raises.
 """
 
 import argparse
+import contextlib
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -348,6 +356,29 @@ def _read_fasta_queries(path) -> tuple[list[str], list[str]]:
     return comments, queries
 
 
+#: the file `query --profile DIR` writes into DIR
+PROFILE_TRACE = "query.pt.trace.json"
+
+
+@contextlib.contextmanager
+def _profiled(trace_dir: str, cuda: bool):
+    """Record a torch.profiler trace of the body into
+    trace_dir/PROFILE_TRACE: CPU activity, and CUDA activity (the kernels'
+    launches and device times) when `cuda`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    Path(trace_dir).mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+        if cuda:
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(str(Path(trace_dir) / PROFILE_TRACE))
+
+
 def cmd_query(argv):
     p = argparse.ArgumentParser(prog="cobs query")
     p.add_argument("-i", "--index", action="append", default=[],
@@ -367,6 +398,11 @@ def cmd_query(argv):
     p.add_argument("--streamed", action="store_true",
                    help="serve the index from a host mmap (for indexes "
                         "larger than device memory)")
+    p.add_argument("--profile", default="", metavar="DIR",
+                   help="record a torch.profiler trace of the search (CPU "
+                        "activity, and CUDA activity when the index is on "
+                        f"a CUDA device) into DIR/{PROFILE_TRACE} "
+                        "(export_chrome_trace)")
     _add_threads_flag(p)
     _add_device_flag(p, "holding the index")
     _add_mesh_flag(p)
@@ -379,13 +415,18 @@ def cmd_query(argv):
     s = Search(args.index, device=args.device, mesh=_mesh(args),
                streamed=(True if args.streamed
                          else False if args.load_complete else None))
+    profile_ctx = contextlib.nullcontext()
+    if args.profile:
+        profile_ctx = _profiled(args.profile, "cuda" in s.device_types())
     if args.query:
-        for res in s.search(args.query, args.threshold, args.limit):
-            print(f"{res.doc_name}\t{res.score}")
+        with profile_ctx:
+            for res in s.search(args.query, args.threshold, args.limit):
+                print(f"{res.doc_name}\t{res.score}")
     elif args.file:
         # FASTA query file: batch all sequences into one kernel launch
         comments, queries = _read_fasta_queries(args.file)
-        results = s.search_batch(queries, args.threshold, args.limit)
+        with profile_ctx:
+            results = s.search_batch(queries, args.threshold, args.limit)
         for comment, result in zip(comments, results):
             print(f"{comment}\t{len(result)}")
             for res in result:
@@ -654,6 +695,421 @@ def _cold_mode(cold: bool) -> str:
     return "on-dontcache" if native.dontcache_supported() else "on-evict"
 
 
+# ------------------------------------------------------------ index tools
+
+def _scan_ones(path, offset: int, num_rows: int, row_bytes: int):
+    """Per-doc-slot set-bit counts over a row-major bitmap, streamed in
+    ~32 MB chunks (constant memory: unpacking a multi-GB payload whole
+    would take 8x the file size in RAM). Raises FileIOError when the file
+    ends early."""
+    ones = np.zeros(8 * row_bytes, dtype=np.int64)
+    rows_per_chunk = max(1, (32 << 20) // max(1, row_bytes))
+    with open(path, "rb") as f:
+        f.seek(offset)
+        remaining = num_rows
+        while remaining:
+            n = min(rows_per_chunk, remaining)
+            chunk = np.fromfile(f, dtype=np.uint8, count=n * row_bytes)
+            if chunk.size != n * row_bytes:
+                raise FileIOError(f'truncated index payload in "{path}"')
+            ones += np.unpackbits(
+                chunk.reshape(n, row_bytes), axis=1,
+                bitorder="little").sum(axis=0, dtype=np.int64)
+            remaining -= n
+    return ones
+
+
+def cmd_info(argv):
+    """Inspect an index file: header fields, geometry, sizes; --scan adds
+    payload statistics (per-document set-bit ratio, the density the
+    reference's tests bound, reference:
+    tests/classic_index_construction.cpp:87-92). A payload that does not
+    match its header raises FileIOError."""
+    p = argparse.ArgumentParser(prog="cobs info")
+    p.add_argument("index", help="index file (classic or compact)")
+    p.add_argument("--scan", action="store_true",
+                   help="scan the payload: ones ratio + corruption check "
+                        "(reads the whole file)")
+    args = p.parse_args(argv)
+
+    import io
+    import os
+
+    from cobs_tpu_torch.fmt import classic as fc
+    from cobs_tpu_torch.fmt import compact as fco
+    from cobs_tpu_torch.query.engine import _WORD_ALIGN
+    from cobs_tpu_torch.utils.misc import format_iec
+
+    path = args.index
+    size = os.path.getsize(path)
+    if fc.is_classic_file(path):
+        h = fc.read_classic_header(path)
+        print(f"kind            classic ({fc.FILE_EXTENSION})")
+        print(f"file size       {format_iec(size)}")
+        print(f"term size       {h.term_size}")
+        print(f"canonicalize    {h.canonicalize}")
+        print(f"num hashes      {h.num_hashes}")
+        print(f"signature size  {h.signature_size} bits")
+        print(f"documents       {len(h.file_names)}")
+        print(f"row size        {h.row_size} B "
+              f"(8-aligned doc slots: {8 * h.row_size})")
+        print(f"payload         "
+              f"{format_iec(h.signature_size * h.row_size)}")
+        if args.scan:
+            buf = io.BytesIO()
+            h.serialize(buf)
+            hdr_len = buf.tell()
+            payload = h.signature_size * h.row_size
+            if hdr_len + payload != size:
+                raise FileIOError(
+                    f'corrupt classic index "{path}": header {hdr_len} B '
+                    f"+ payload {payload} B != file size {size} B")
+            ones = _scan_ones(path, hdr_len, h.signature_size, h.row_size)
+            ratio = ones / float(h.signature_size)
+            n = len(h.file_names)
+            print(f"ones ratio      min {ratio[:n].min():.6f} "
+                  f"mean {ratio[:n].mean():.6f} "
+                  f"max {ratio[:n].max():.6f}")
+            pad = ratio[n:]
+            if pad.size and pad.max() > 0:
+                print("WARNING: padding doc slots contain set bits")
+    elif fco.is_compact_file(path):
+        h, payload_off = fco.read_compact_header(path)
+        print(f"kind            compact ({fco.FILE_EXTENSION})")
+        print(f"file size       {format_iec(size)}")
+        print(f"term size       {h.term_size}")
+        print(f"canonicalize    {h.canonicalize}")
+        print(f"page size       {h.page_size} B "
+              f"({8 * h.page_size} docs/page)")
+        print(f"pages           {len(h.parameters)}")
+        print(f"documents       {len(h.file_names)}")
+        sigs = [p_.signature_size for p_ in h.parameters]
+        nhs = sorted({p_.num_hashes for p_ in h.parameters})
+        nh_txt = (f"uniform num_hashes {nhs[0]}" if len(nhs) == 1
+                  else f"num_hashes {nhs[0]}..{nhs[-1]} "
+                       "(NON-UNIFORM: unqueryable)")
+        print(f"signature sizes {min(sigs)}..{max(sigs)} bits ({nh_txt})")
+        payload = sum(s * h.page_size for s in sigs)
+        print(f"payload         {format_iec(payload)} "
+              f"(starts page-aligned at {payload_off})")
+        sig_nh = [(p_.signature_size, p_.num_hashes) for p_ in h.parameters]
+        m = fco.coalesce_factor(sig_nh)
+        if m > 1:
+            print(f"mergeable       groups of {m} equal-size pages -> "
+                  f"{m * h.page_size} B pages, bit-preserving "
+                  f"(`cobs repack`; the query engine merges in HBM "
+                  "automatically)")
+        else:
+            runs = fco.coalesce_runs(sig_nh)
+            if any(n > 1 for _, n in runs):
+                print(f"mergeable       {len(runs)} equal-size RUNS "
+                      f"(longest {max(n for _, n in runs)} pages); no "
+                      "uniform factor, so `cobs repack` cannot "
+                      "materialize it — the query engine merges the "
+                      "runs in HBM automatically")
+        # the engine pads each (merged) page to a multiple of
+        # _WORD_ALIGN 4-byte words on the device
+        align = 4 * _WORD_ALIGN
+        if h.page_size < align:
+            extra = ("" if m * h.page_size >= align
+                     else f"; a --page-size that is a multiple of "
+                          f"{align} needs no padding")
+            print(f"hint: {h.page_size} B pages pad to {_WORD_ALIGN} "
+                  f"words ({align} B) each on the device at query "
+                  f"time{extra}")
+        if args.scan:
+            if payload_off + payload != size:
+                raise FileIOError(
+                    f'corrupt compact index "{path}": header+padding '
+                    f"{payload_off} B + payload {payload} B != file size "
+                    f"{size} B")
+            doc, pos, worst = 0, payload_off, 0.0
+            for prm in h.parameters:
+                ones = _scan_ones(path, pos, prm.signature_size,
+                                  h.page_size)
+                pos += prm.signature_size * h.page_size
+                n_here = min(len(h.file_names) - doc, 8 * h.page_size)
+                if n_here > 0:
+                    worst = max(worst, float(
+                        (ones[:n_here] / prm.signature_size).max()))
+                doc += n_here
+            print(f"ones ratio      max over pages {worst:.6f}")
+    else:
+        raise FileIOError(
+            f'Could not open index path "{path}" (unknown format)')
+    return 0
+
+
+#: the device probe of `cobs doctor`, run in a fresh interpreter: argv[1]
+#: is the torch device; prints one JSON line
+_DOCTOR_PROBE = """\
+import json, platform, sys, time
+import torch
+dev = torch.device(sys.argv[1])
+t0 = time.time()
+if dev.type == "cuda":
+    if not torch.cuda.is_available():
+        raise SystemExit("CUDA is not available "
+                         "(torch.cuda.is_available() is False)")
+    torch.cuda.init()
+    n, name = torch.cuda.device_count(), torch.cuda.get_device_name(dev)
+else:
+    n, name = 1, platform.machine()
+y = (torch.arange(8, device=dev) * 2).cpu()
+if int(y[3]) != 6:
+    raise SystemExit(f"arange(8) * 2 on {dev} gave {y.tolist()}")
+print(json.dumps({"n": n, "type": dev.type, "name": name,
+                  "roundtrip_s": round(time.time() - t0, 2)}))
+"""
+
+
+def cmd_doctor(argv):
+    """Deployment self-check: the device probe (in a fresh interpreter
+    under --timeout, so a hung CUDA runtime is diagnosed, not reproduced), the
+    native host library and io_uring, the CUDA kernels' builds, and the
+    settings. Exits 1 if the device probe or the native library fails;
+    io_uring and the kernel builds are reported, not failed."""
+    p = argparse.ArgumentParser(prog="cobs doctor")
+    p.add_argument("--timeout", type=float, default=60.0,
+                   help="seconds to wait for the device probe (default 60)")
+    _add_device_flag(p, "to probe")
+    args = p.parse_args(argv)
+
+    import json
+    import platform
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from cobs_tpu_torch import native
+    from cobs_tpu_torch.ops import _build
+
+    failures = 0
+    device = settings.device if args.device is None else args.device
+    print(f"python {sys.version.split()[0]} on {platform.platform()}")
+    print(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
+          f"device {device}")
+
+    # --- device: a fresh interpreter, so no CUDA context is inherited
+    # and a hung CUDA runtime cannot hang this process
+    try:
+        r = subprocess.run([sys.executable, "-c", _DOCTOR_PROBE, device],
+                           capture_output=True, text=True,
+                           timeout=args.timeout)
+        info = None
+        for line in (r.stdout or "").splitlines():
+            if line.startswith("{"):
+                try:
+                    info = json.loads(line)
+                except ValueError:
+                    pass  # a stray brace-prefixed log line, not ours
+        if r.returncode == 0 and info:
+            print(f"DEVICE OK: {info['n']}x {info['name']} "
+                  f"({info['type']}), first op round-trip "
+                  f"{info['roundtrip_s']}s")
+        else:
+            failures += 1
+            tail = (r.stderr or "").strip().splitlines()[-1:]
+            print(f"DEVICE FAILED: probe of {device} exited "
+                  f"{r.returncode}" + (f" ({tail[0]})" if tail else ""))
+    except subprocess.TimeoutExpired:
+        failures += 1
+        print(f"DEVICE UNREACHABLE: init and first op on {device} did not "
+              f"return within {args.timeout:.0f}s - CUDA runtime hung or card "
+              "wedged; retry with a longer --timeout")
+
+    # --- native host library + io_uring
+    try:
+        native.lib()
+    except RuntimeError as e:
+        failures += 1
+        print(f"NATIVE FAILED: {str(e).splitlines()[0]} (check g++)")
+    else:
+        print("NATIVE OK: C++ host library loaded "
+              "(hashing, scatter, row gather, scoring)")
+        with tempfile.NamedTemporaryFile() as f:
+            f.write(b"x" * 4096)
+            f.flush()
+            out = np.empty((2, 16), dtype=np.uint8)
+            if native.gather_rows_file(f.name, 0, 16,
+                                       np.array([0, 4], np.int64), out,
+                                       dontcache=True):
+                dc = ("cache-bypass (RWF_DONTCACHE) reads available"
+                      if native.dontcache_supported()
+                      else "RWF_DONTCACHE unsupported here - cold "
+                           "benchmarks evict the page cache per batch")
+                print(f"IO_URING OK: batched async row reads; {dc}")
+            else:
+                print("IO_URING UNAVAILABLE: streamed queries gather rows "
+                      "from the mmap and cold benchmarks evict the page "
+                      "cache per batch (seccomp or pre-5.1 kernel?)")
+
+    # --- the CUDA kernels' builds (doctor builds nothing)
+    try:
+        nvcc = _build._nvcc()
+    except RuntimeError:
+        nvcc = "not found (set CUDA_HOME)"
+    built = sum(_build._so_path(name).exists() for name in _build.SOURCES)
+    print(f"KERNELS: nvcc {nvcc}; {built} of {len(_build.SOURCES)} sources "
+          f"built for their current source in {_build.BUILD_DIR} (built at "
+          "first use otherwise)")
+
+    print(f"settings: device={settings.device} threads={settings.threads} "
+          f"device_hash={settings.device_hash} "
+          f"streamed_score={settings.streamed_host_score} "
+          f"mega_batches={settings.mega_batches}")
+    return 1 if failures else 0
+
+
+# ------------------------------------------------------------------- misc
+
+def cmd_print_parameters(argv):
+    p = _parser_with_num_hashes("cobs print-parameters")
+    _add_num_hashes_flag(p)
+    p.add_argument("-f", "--false-positive-rate", type=float, default=0.3)
+    p.add_argument("-n", "--num-elements", default="0")
+    args = p.parse_args(argv)
+
+    from cobs_tpu_torch.core.params import (
+        calc_signature_size,
+        calc_signature_size_ratio,
+    )
+    from cobs_tpu_torch.utils.misc import format_iec
+
+    num_elements = _parse_bytes(args.num_elements)
+    if num_elements == 0:
+        print(calc_signature_size_ratio(args.num_hashes,
+                                        args.false_positive_rate))
+    else:
+        sig = calc_signature_size(num_elements, args.num_hashes,
+                                  args.false_positive_rate)
+        print(f"signature_size = {sig}")
+        print(f"signature_bytes = {sig // 8} = {format_iec(sig // 8)}")
+    return 0
+
+
+def cmd_print_kmers(argv):
+    p = argparse.ArgumentParser(prog="cobs print-kmers")
+    p.add_argument("query")
+    p.add_argument("-k", "--kmer-size", type=int, default=31)
+    args = p.parse_args(argv)
+
+    from cobs_tpu_torch.core.canonical import canonicalize_batch
+    from cobs_tpu_torch.ingest.util import sliding_windows
+
+    q = np.frombuffer(args.query.encode(), dtype=np.uint8)
+    windows = sliding_windows(q, args.kmer_size)
+    # the reference emits size-k windows for i in [0, |q|-k), one fewer
+    # than the total window count (reference: src/cobs.cpp:584-597)
+    windows = windows[:max(0, len(args.query) - args.kmer_size)]
+    if windows.shape[0]:
+        canon, good = canonicalize_batch(windows)
+        for row, g, raw in zip(canon, good, windows):
+            if not g:
+                print("Invalid DNA base pair: " + raw.tobytes().decode())
+            else:
+                print(row.tobytes().decode())
+    return 0
+
+
+def cmd_generate_queries(argv):
+    """Sample positive queries (a document's term, optionally padded with
+    random bases to --size) and random negatives; the same arguments and
+    seed give the same file as cobs_tpu's (the same draws from
+    np.random.default_rng(seed), in the same order)."""
+    p = argparse.ArgumentParser(prog="cobs generate-queries")
+    p.add_argument("path", help="path to base documents")
+    p.add_argument("--file-type", default="any", help=FILE_TYPE_HELP)
+    _add_threads_flag(p)
+    p.add_argument("-k", "--term-size", type=int, default=31)
+    p.add_argument("-p", "--positive", type=int, default=0)
+    p.add_argument("-n", "--negative", type=int, default=0)
+    p.add_argument("-N", "--true-negative", action="store_true")
+    p.add_argument("-s", "--size", type=int, default=0,
+                   help="extend positive terms with random data to size")
+    p.add_argument("-S", "--seed", type=int, default=0)
+    p.add_argument("-o", "--out-file", default="")
+    args = p.parse_args(argv)
+    _apply_threads(args)
+
+    from cobs_tpu_torch.ingest.document_list import (
+        DocumentList,
+        string_to_file_type,
+    )
+    from cobs_tpu_torch.utils.misc import random_sequence_rng
+
+    filelist = DocumentList(args.path, string_to_file_type(args.file_type))
+    rng = np.random.default_rng(args.seed)
+    term_size = args.term_size
+    fixed_size = max(args.size, term_size)
+
+    total_terms = sum(e.num_terms(term_size) for e in filelist.list())
+    print(f"Given {filelist.size()} documents containing {total_terms} "
+          f"{term_size}-gram terms", file=sys.stderr)
+    if total_terms < args.positive:
+        raise SystemExit("not enough terms for requested positives")
+
+    positive_ids = set()
+    while len(positive_ids) < args.positive:
+        positive_ids.add(int(rng.integers(0, total_terms)))
+    positive_ids = sorted(positive_ids)
+
+    # negatives: random queries, optionally verified against the corpus
+    negatives = [random_sequence_rng(fixed_size, rng)
+                 for _ in range(int(1.5 * args.negative))]
+    negative_terms: dict[bytes, list[int]] = {}
+    for t_i, neg in enumerate(negatives):
+        nb = neg.encode()
+        for i in range(len(nb) - term_size + 1):
+            negative_terms.setdefault(nb[i:i + term_size], []).append(t_i)
+
+    queries = []  # (comment, sequence)
+    pos_iter = iter(positive_ids)
+    next_id = next(pos_iter, None)
+    index = 0
+    for d, e in enumerate(filelist.list()):
+        doc_start = index
+        for w in e.term_windows(term_size):
+            n = w.shape[0]
+            while next_id is not None and index <= next_id < index + n:
+                term = w[next_id - index].tobytes()
+                if fixed_size > term_size:
+                    pad = fixed_size - term_size
+                    front = int(rng.integers(0, pad))
+                    term = (random_sequence_rng(front, rng).encode() + term
+                            + random_sequence_rng(pad - front, rng).encode())
+                queries.append((
+                    f">doc:{d}:term:{next_id - doc_start}:{e.name}",
+                    term.decode()))
+                next_id = next(pos_iter, None)
+            if args.true_negative:
+                for row in w:
+                    hit = negative_terms.pop(row.tobytes(), None)
+                    if hit is not None:
+                        for t_i in hit:
+                            negatives[t_i] = ""
+            index += n
+
+    real_negatives = [x for x in negatives if x][:args.negative]
+    if len(real_negatives) < args.negative:
+        raise SystemExit(
+            "Not enough true negatives left, you were unlucky, try again.")
+    for i, neg in enumerate(real_negatives):
+        queries.append((f">negative{i}", neg))
+
+    order = rng.permutation(len(queries))
+    out = sys.stdout if not args.out_file else open(args.out_file, "w")
+    try:
+        for i in order:
+            comment, seq = queries[i]
+            out.write(comment + "\n" + seq + "\n")
+    finally:
+        if out is not sys.stdout:
+            out.close()
+    return 0
+
+
 SUBTOOLS = {
     "doc-list": (cmd_doc_list, "read a list of documents and print them"),
     "doc-dump": (cmd_doc_dump, "read a list of documents and dump their "
@@ -672,11 +1128,21 @@ SUBTOOLS = {
                "merge equal-size compact pages into wider pages, "
                "bit-preserving"),
     "query": (cmd_query, "query an index"),
-    "benchmark-fpr": (cmd_benchmark_fpr,
-                      "run a query benchmark over random queries"),
     "serve": (cmd_serve, "run a resident batching query server"),
+    "doctor": (cmd_doctor, "check the device, native library, kernel "
+                           "builds and settings"),
+    "info": (cmd_info, "inspect an index file (header, geometry, "
+                       "--scan statistics)"),
+    "print-parameters": (cmd_print_parameters,
+                         "print index parameters for a given configuration"),
+    "print-kmers": (cmd_print_kmers,
+                    "print canonicalized k-mers of a query"),
     "benchmark-scaling": (cmd_benchmark_scaling,
                           "weak-scaling query benchmark over a mesh"),
+    "benchmark-fpr": (cmd_benchmark_fpr,
+                      "run a query benchmark over random queries"),
+    "generate-queries": (cmd_generate_queries,
+                         "select queries randomly from documents"),
 }
 
 
@@ -699,5 +1165,9 @@ def main(argv=None) -> int:
         return 1
 
 
-if __name__ == "__main__":
+def console_main() -> None:
     raise SystemExit(main())
+
+
+if __name__ == "__main__":
+    console_main()

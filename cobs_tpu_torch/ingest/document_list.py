@@ -154,6 +154,13 @@ class DocumentEntry:
             return batches[0]
         return np.concatenate(batches, axis=0)
 
+    def process_terms(self, term_size: int, callback) -> None:
+        """Call `callback(term bytes)` for every term, in order (the
+        reference's per-term callback API)."""
+        for w in self.term_windows(term_size):
+            for row in w:
+                callback(row.tobytes())
+
 
 def load(path) -> list[DocumentEntry]:
     """Identify and load DocumentEntries for a path
@@ -253,6 +260,9 @@ class DocumentList:
     def __getitem__(self, i: int) -> DocumentEntry:
         return self._list[i]
 
+    def sort_by_path(self) -> None:
+        self._list.sort(key=lambda d: d.path)
+
     def sort_by_size(self) -> None:
         self._list.sort(key=lambda d: (d.size, d.path))
 
@@ -275,6 +285,10 @@ class DocumentList:
                 first_filename = ""
                 batch_num += 1
         return batches
+
+    def process_batches(self, batch_size: int, func) -> None:
+        for batch_num, batch, out_file in self._make_batches(batch_size):
+            func(batch_num, batch, out_file)
 
     def process_batches_parallel(self, batch_size: int, num_threads: int,
                                  func) -> None:

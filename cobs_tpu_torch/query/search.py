@@ -273,6 +273,13 @@ class Search:
     def timer(self) -> Timer:
         return self.timer_
 
+    def device_types(self) -> set[str]:
+        """The types ("cuda", "cpu") of the devices this Search scores on:
+        its mesh's, or its indexes'."""
+        if self.mesh is not None:
+            return {d.type for row in self.mesh.devices for d in row}
+        return {ix.device.type for ix in self.index_files}
+
     def search(self, query, threshold: float = 0.0,
                num_results: int = 0) -> list[SearchResult]:
         return self.search_batch([query], threshold, num_results)[0]

@@ -140,8 +140,9 @@ def test_cache_files_byte_identical_and_shared(tmp_path, monkeypatch,
 
 def test_batches_order_and_parallel_processing_match_cobs_tpu(tmp_path):
     """_make_batches, sort_by_size (documents of equal size tie in path
-    order) and process_batches_parallel on several threads give
-    cobs_tpu's batches, each exactly once."""
+    order), process_batches and process_batches_parallel on several
+    threads give cobs_tpu's batches, each exactly once; sort_by_path and
+    process_terms give cobs_tpu's order and terms."""
     root = tmp_path / "docs"
     root.mkdir()
     rng = np.random.default_rng(5)
@@ -165,6 +166,18 @@ def test_batches_order_and_parallel_processing_match_cobs_tpu(tmp_path):
             size, 4, lambda n, b, f: seen.append((n, [e.name for e in b],
                                                   f)))
         assert sorted(seen) == got
+        seen = []
+        mine.process_batches(
+            size, lambda n, b, f: seen.append((n, [e.name for e in b], f)))
+        assert seen == got
+    mine.sort_by_path()
+    theirs.sort_by_path()
+    assert _entries(mine, root) == _entries(theirs, root)
+    for k in (15, 31):
+        got, want = [], []
+        mine[3].process_terms(k, got.append)
+        theirs[3].process_terms(k, want.append)
+        assert got == want and len(got) == mine[3].num_terms(k)
 
 
 def test_list_files_and_filters_match_cobs_tpu(tmp_path):

@@ -197,17 +197,19 @@ def test_cmd_benchmark_scaling(capsys):
 
 
 def test_imports_and_answers_without_jax():
-    """Every module of the port, parallel/* included, imports with jax and
-    cobs_tpu blocked, and the port builds an index from the golden corpus
-    and answers from it, on one device and sharded over a mesh: the
-    card's machine has no JAX."""
+    """Every module of the port, parallel/* included, and the
+    cobs_index_torch shim import with jax and cobs_tpu blocked; the port
+    builds an index from the golden corpus and answers from it, on one
+    device and sharded over a mesh, and runs the subtools that read
+    indexes and documents: the card's machine has no JAX."""
     code = f"""
 import sys
 sys.modules["jax"] = None
 sys.modules["cobs_tpu"] = None
-import pkgutil, importlib, shutil, tempfile
+import contextlib, io, pkgutil, importlib, shutil, tempfile
 from pathlib import Path
 import cobs_tpu_torch
+import cobs_index_torch
 for m in pkgutil.walk_packages(cobs_tpu_torch.__path__, "cobs_tpu_torch."):
     importlib.import_module(m.name)
 assert {{"cobs_tpu_torch.parallel." + m for m in (
@@ -233,6 +235,18 @@ for kind in ("classic", "compact"):
     s = cobs_tpu_torch.Search(str(out), device="cpu")
     got = [(r.doc_name, r.score) for r in s.search({GOLDEN_QUERY!r}, 0.0)]
     assert got == {GOLDEN_LINES!r}, got
+    for argv in (["info", str(out), "--scan"],
+                 ["query", "-i", str(out), "--device", "cpu", "--profile",
+                  str(tmp / "prof"), {GOLDEN_QUERY!r}]):
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert main(argv) == 0, argv
+for argv in (["print-parameters", "-n", "1M"],
+             ["print-kmers", {GOLDEN_QUERY!r}],
+             ["generate-queries", str(tmp / "fasta"), "-p", "3", "-n", "2",
+              "-s", "40"],
+             ["doctor", "--device", "cpu"]):
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert main(argv) == 0, argv
 shutil.rmtree(tmp)
 assert not [m for m in sys.modules
             if m.startswith(("jax.", "jaxlib", "cobs_tpu."))]
