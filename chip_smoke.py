@@ -172,6 +172,52 @@ torch.cuda.synchronize():
    at 0 just before: DocumentList, classic_construct and
    compact_construct on a copy of tests/data/fasta give the golden files,
    and Search gives the reference's lines. Prints each step's seconds.
+14. the reference paper's scale, through the port of cobs_tpu's harness
+   (cobs_tpu_torch/experiments/paper_scale.py, at cobs_tpu's defaults):
+   (a) `gen`: 100,000 FASTA documents of 20,000 bp (2.0 GB under
+   bench_data/, deleted at the end); (b) `build`: the CLI's
+   `compact-construct --memory 256MiB --clobber` on the card (the
+   scatter's count at 0 just before; k=31, h=1, fpr 0.3, canonical; 98
+   pages of 1,024 documents, 128 B each) and `repack` (one page of
+   12,544 B), in a fresh process; prints each step's seconds,
+   updates/s, the scatter launches, the page sub-indices written and
+   combined, and that process's RSS as the pages are written (sampled
+   every 0.2 s): from a quarter of the pages written to the end of the
+   construction its peak must grow by less than half the matrix bytes
+   of the remaining pages (out of core); then
+   the first subdirectory (1,000 documents, one page) at a --memory that
+   cuts the page into four classic sub-indices, combined, and at 256MiB
+   (one), byte-identical files; (c) `verify`:
+   PLANT_SEQ at threshold 0.9 gives exactly the 11 planted documents at
+   70 of 70, every other score below 0.9 x 70, on paper.cobs_compact
+   held (coalesced at load: one page), held with
+   COBS_TPU_COALESCE_PAGES=0 (98 pages) and streamed with host scoring
+   (98 pages), and on paper_wide.cobs_compact held, all four rankings
+   equal; (d) the hash kernel and K1 at this path's shapes, B=512 random
+   queries of 1,000 terms, on the 98-page and the one-page index: the
+   hash kernel equal to its plain version and to native host hashing, K1
+   equal to its plain version, exactly, each timed beside its plain
+   version and its bound; the scatter on one upload chunk of this build
+   (2^22 updates of page 0's first documents) equal to its plain
+   version, timed; (e) `serve`: `search_stream` held on the card, B=512,
+   mega 8, threshold 0.8, top 100, 16,384 random 1,030 bp queries, two
+   timed rounds after a warm-up group, K1 and hash launches counted (one
+   per group of 8 batches), the card's busy share over one group from a
+   profiler window, that group's rankings equal to one batch at a time,
+   the hash kernel and K1 equal to their plain versions at that group's
+   launch shape (rows [4,096, 1,000, 1, 1], K1 timed), the first 1,024
+   responses equal to streamed host
+   scoring's (hashed natively), COBS_TPU_DEVICE_HASH=host equal to device
+   hashing, the host `hashes` time per batch of both, and native against
+   numpy hashing at phase 3's shape (64 x 1,030 bp), hashes equal; (f)
+   `serve --streamed` (device scoring) over 2,048 queries;
+15. the serving soak (cobs_tpu_torch/experiments/server_soak.py, in
+   process): a QueryServer on the card over the golden corpus's classic
+   index for 30 s with 4 pipelining clients checking every response, a
+   reload every second and a chaos client; the harness's exit rule (zero
+   wrong responses, zero batch failures, zero connections left open)
+   and at least 20 reloads; then 10 s more with COBS_TPU_SERVER_DEBUG=1,
+   printing the scorer's six phase timers per batch.
 
 Prints the card's name and power limit, the build times, the times, then
 a JSON line of the kernels and, last, the device JSON line. Any failure
@@ -179,6 +225,7 @@ raises and exits non-zero; so does a machine without a CUDA card.
 """
 
 import concurrent.futures
+import contextlib
 import json
 import os
 import shutil
@@ -367,23 +414,30 @@ def timer_line(timer, n: int) -> str:
                     for p in ("hashes", "io", "add rows", "sort results"))
 
 
-def device_busy_us(torch, fn) -> tuple[float, list]:
-    """Device time (us) of fn() from a torch.profiler window: the sum of
-    the device-side events (kernels and copies; the host-side ops that
-    launch them are left out, so nothing counts twice), and the five
-    largest by name."""
+def device_busy_us(torch, fn, want: dict | None = None) -> tuple:
+    """Device time (us) of fn() from a CUDA-only torch.profiler window:
+    the sum of the device-side events (kernels and copies), and the five
+    largest by name. With `want`, each kernel named there must appear
+    exactly that many times, in two tries (a long-lived process's later
+    windows have come back without the ctypes-launched kernels); else
+    (None, the kernel counts seen)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    per = [(e.self_device_time_total, e.key) for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA
-           and e.self_device_time_total > 0]
-    per.sort(reverse=True)
-    return sum(us for us, _ in per), per[:5]
+    for _ in range(1 if want is None else 2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        seen = want and {name: sum(e.count for e in events if name in e.key)
+                         for name in want}
+        if seen == want:
+            per = sorted(((e.self_device_time_total, e.key)
+                          for e in events), reverse=True)
+            return sum(us for us, _ in per), per[:5]
+    return None, seen
 
 
 def phase_reference_scale(torch, qk, dh, engine, Search, settings,
@@ -1793,19 +1847,55 @@ def same_pairs(got, want) -> bool:
     return pairs(got) == pairs(want)
 
 
+def group_payload(engine, s, batches) -> tuple:
+    """(the payload multi-batch dispatch uploads for `batches`: the
+    engine._concat_payloads of their `_hash_batch_lenient` payloads, the
+    queries flagged) on s's first index."""
+    from cobs_tpu_torch.utils.timer import Timer
+
+    out, flagged = [], 0
+    for batch in batches:
+        hashed, errors = s._hash_batch_lenient(batch, Timer())
+        out.append(hashed[0])
+        flagged += sum(e is not None for e in errors)
+    return engine._concat_payloads(s.index_files[0], out), flagged
+
+
+def k1_exact(torch, qk, ix, rows, what: str) -> None:
+    """K1 against its plain version, exact, on ix's matrix."""
+    got = qk.gather_and_count(ix.matrix, rows, ix.num_hashes)
+    want = qk.gather_and_count_reference(ix.matrix, rows, ix.num_hashes)
+    require(torch.equal(got, want),
+            f"{what}: K1 != plain, max error {max_err(got, want)}")
+
+
+def group_kernels_exact(torch, qk, dh, engine, ix, cat, what: str):
+    """The hash kernel and K1 against their plain versions, exact, on a
+    group payload `cat` hashed on the card; returns the rows."""
+    require(isinstance(cat, engine.QueryBytes),
+            f"{what}: the payload was not hashed on the card")
+    qdata, qlens = engine._device_hash_args(ix, cat)
+    sig, off, mag = ix.page_tables
+    args = (qdata, qlens, ix.term_size, ix.num_hashes, ix.canonicalize,
+            sig, off, ix.zero_row, mag)
+    rows = dh.rows_from_queries(*args)
+    what = f"{what} (B={len(cat)}, L={qdata.shape[1]})"
+    require(torch.equal(rows, dh.rows_from_queries_reference(*args)),
+            f"{what}: hash kernel != plain")
+    k1_exact(torch, qk, ix, rows, what)
+    return rows
+
+
 def group_kernels(torch, qk, dh, engine, s, settings, queries,
                   B: int) -> int:
     """The hash kernel and K1 against their plain versions, exact, on the
-    payloads multi-batch dispatch builds (engine._concat_payloads of the
-    batches' `_hash_batch_lenient` payloads): a group of K batches for
-    every K from 2 to the ceiling (B = K * 64 rows), one group of four
-    batches of mixed query lengths (rows padded to the longest, a
-    too-short and a non-ACGT query flagged to length 0), and K1 on the
-    host-hashed rows of the largest group. Returns the groups checked."""
-    from cobs_tpu_torch.utils.timer import Timer
-
+    payloads multi-batch dispatch builds (group_payload): a group of K
+    batches for every K from 2 to the ceiling (B = K * 64 rows), one
+    group of four batches of mixed query lengths (rows padded to the
+    longest, a too-short and a non-ACGT query flagged to length 0), and
+    K1 on the host-hashed rows of the largest group. Returns the groups
+    checked."""
     ix = s.index_files[0]
-    sig, off, mag = ix.page_tables
     rng = np.random.default_rng(12)
     mixed = [[q[:n] for q, n in zip(queries[i * B:(i + 1) * B],
                                     rng.integers(31, 200 * (i + 1) + 31, B))]
@@ -1816,41 +1906,23 @@ def group_kernels(torch, qk, dh, engine, s, settings, queries,
     groups = [[queries[i * B:(i + 1) * B] for i in range(K)]
               for K in range(2, mega + 1)] + [mixed]
 
-    def payloads(group):
-        out, flagged = [], 0
-        for batch in group:
-            hashed, errors = s._hash_batch_lenient(
-                [q.encode() for q in batch], Timer())
-            out.append(hashed[0])
-            flagged += sum(e is not None for e in errors)
+    def payload(group):
+        cat, flagged = group_payload(
+            engine, s, [[q.encode() for q in batch] for batch in group])
         require(flagged == (2 if group is mixed else 0),
                 f"phase 11 groups: {flagged} queries flagged")
-        return engine._concat_payloads(ix, out)
-
-    def k1_equal(rows, what):
-        got = qk.gather_and_count(ix.matrix, rows, ix.num_hashes)
-        want = qk.gather_and_count_reference(ix.matrix, rows, ix.num_hashes)
-        require(torch.equal(got, want), f"phase 11 groups: K1 != plain "
-                                        f"({what}), {max_err(got, want)}")
+        return cat
 
     for group in groups:
-        cat = payloads(group)
-        require(isinstance(cat, engine.QueryBytes),
-                "phase 11 groups: the payload was not hashed on the card")
-        qdata, qlens = engine._device_hash_args(ix, cat)
-        args = (qdata, qlens, ix.term_size, ix.num_hashes, ix.canonicalize,
-                sig, off, ix.zero_row, mag)
-        rows = dh.rows_from_queries(*args)
-        what = f"K={len(group)}, B={len(cat)}, L={qdata.shape[1]}"
-        require(torch.equal(rows, dh.rows_from_queries_reference(*args)),
-                f"phase 11 groups: hash kernel != plain ({what})")
-        k1_equal(rows, what)
+        group_kernels_exact(torch, qk, dh, engine, ix, payload(group),
+                            f"phase 11 groups, K={len(group)}")
     settings.device_hash = "host"
     try:
-        cat = payloads(groups[-2])
+        cat = payload(groups[-2])
     finally:
         settings.device_hash = "auto"
-    k1_equal(engine._rows_tensor(ix, cat), f"host hashes, B={len(cat)}")
+    k1_exact(torch, qk, ix, engine._rows_tensor(ix, cat),
+             f"phase 11 groups, host hashes, B={len(cat)}")
     torch.cuda.synchronize()
     return len(groups) + 1
 
@@ -2736,6 +2808,655 @@ def sharded_child(rank: int, work: str) -> None:
         distributed.shutdown()
 
 
+#: phase 14: cobs_tpu's experiments/paper_scale.py at its defaults (the
+#: reference paper's scale: 100,000 documents of 20 kbp, out-of-core
+#: compact construction in 256 MiB, repack, B=512, mega 8, 16,384 queries)
+PAPER_DOCS, PAPER_DOC_SIZE, PAPER_MEMORY = 100_000, 20_000, "256MiB"
+PAPER_QUERIES, PAPER_BATCH, PAPER_MEGA, PAPER_TERMS = 16384, 512, 8, 1000
+#: served responses held to streamed host scoring; queries of the
+#: --streamed (device scoring) run
+PAPER_CHECKED, PAPER_STREAMED_QUERIES = 1024, 2048
+#: phase 15: the serving soak's seconds, and those of its run with the
+#: scorer's phase timers on
+SOAK_SECONDS, SOAK_DEBUG_SECONDS = 30.0, 10.0
+
+
+def rss_now() -> int:
+    """This process's resident set size in bytes (/proc/self/statm)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def run_child(call: str, log: Path, seconds: float) -> int:
+    """The exit code of a fresh Python process that imports this script
+    and runs `call`, its output in `log`; killed and failed after
+    `seconds`."""
+    with open(log, "wb") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.{call}"],
+            cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)
+    try:
+        return proc.wait(timeout=seconds)
+    except subprocess.TimeoutExpired:
+        require(False, f"{call}: no exit in {seconds:.0f} s")
+    finally:
+        if proc.returncode is None:
+            proc.kill()
+            proc.wait()
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """Environment variables set for the length of a block."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def event_ms(torch, fn):
+    """(fn()'s result, its device time in ms from CUDA events): one call,
+    for plain versions too slow to repeat."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1_000_000)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def numpy_hashes(qbytes: list, k: int) -> np.ndarray:
+    """The numpy host hashing the native library replaced (canonical
+    k-mers, XXH64 seed 0) over a batch's windows."""
+    from cobs_tpu_torch.core.canonical import canonicalize_batch
+    from cobs_tpu_torch.core.xxh64 import xxh64_multi_seed
+    from cobs_tpu_torch.ingest.util import sliding_windows
+
+    w = np.concatenate([sliding_windows(np.frombuffer(q, np.uint8), k)
+                        for q in qbytes])
+    w, _ = canonicalize_batch(w)
+    return xxh64_multi_seed(np.ascontiguousarray(w), 1)
+
+
+def phase_paper_scale(torch, qk, dh, cs, engine, Search, settings,
+                      card: str) -> dict:
+    """Phase 14: the reference paper's scale; see the module docstring."""
+    from cobs_tpu_torch.experiments import paper_scale as ps
+
+    root = ROOT / "bench_data" / "paper"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        out = _paper_build(torch, cs, ps, root, card)
+        out.update(_paper_query(torch, qk, dh, cs, engine, Search, settings,
+                                ps, root, out["pages"], card))
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def paper_build_child(root: str, out: str) -> None:
+    """Phase 14 (b) in a fresh process: the harness's build (the CLI's
+    compact-construct on the card, then repack), the scatter kernel's
+    count at 0 just before. Writes to `out` (JSON) the steps, the
+    launches, the construction log's sub-index count and stages, the
+    worker threads, this process's resident set size before the build
+    (torch, the CUDA context and the kernel loaded), and (seconds, RSS,
+    page sub-indices written so far) sampled every 0.2 s from the
+    build's start. The samples give the peaks: getrusage's ru_maxrss
+    also counts the parent's resident set at the fork, and the card's
+    host has no VmHWM in /proc/self/status."""
+    import io
+    import threading
+
+    import torch
+
+    from cobs_tpu_torch.experiments import paper_scale as ps
+    from cobs_tpu_torch.ops import _build
+    from cobs_tpu_torch.ops import construct_scatter as cs
+    from cobs_tpu_torch.settings import settings
+
+    torch.zeros(1, device=DEVICE)
+    _build.load("construct_scatter")
+    torch.cuda.synchronize()
+    base = rss_now()
+    log = io.StringIO()
+    samples, stop = [], threading.Event()
+    t0 = time.perf_counter()
+
+    def sample():
+        while not stop.wait(0.2):
+            samples.append((time.perf_counter() - t0, rss_now(),
+                            log.getvalue().count("Construct Classic Index")))
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    cs.LAUNCHES = 0
+    try:
+        with contextlib.redirect_stderr(log):
+            steps = ps.build(Path(root), PAPER_MEMORY, DEVICE)
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        sampler.join()
+    text = log.getvalue()
+    Path(out).write_text(json.dumps({
+        "steps": steps, "launches": cs.LAUNCHES, "base_rss": base,
+        "threads": settings.threads, "samples": samples,
+        "sub_indices": text.count("Construct Classic Index"),
+        "stages": construct_stages(text), "log_tail": text[-2000:]}))
+
+
+def _paper_build(torch, cs, ps, root: Path, card: str) -> dict:
+    """Phase 14 (a), (b): gen, then build through the harness in a fresh
+    process (paper_build_child), then one subdirectory split
+    (_paper_split)."""
+    import io
+
+    from cobs_tpu_torch.construct.device import UPDATE_CHUNK, UPLOAD_BUFFERS
+    from cobs_tpu_torch.fmt.compact import read_compact_header
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        ps.gen(root, PAPER_DOCS, PAPER_DOC_SIZE)
+    gen_s = time.perf_counter() - t0
+    fasta_gb = PAPER_DOCS * (PAPER_DOC_SIZE + 4) / 1e9
+    print(f"phase 14 gen: {PAPER_DOCS} documents x {PAPER_DOC_SIZE} bp "
+          f"({fasta_gb:.2f} GB of FASTA) in {gen_s:.1f} s")
+
+    res_file, log = root / "build_child.json", root / "build_child.log"
+    rc = run_child(
+        f"paper_build_child({str(root)!r}, {str(res_file)!r})", log, 900)
+    require(rc == 0, f"the paper-scale build process exited {rc}; log "
+                     f"tail {log.read_bytes()[-3000:]!r}")
+    res = json.loads(res_file.read_text())
+    steps, launches = res["steps"], res["launches"]
+    require(steps["construct_rc"] == 0 and steps["repack_rc"] == 0,
+            f"paper-scale build failed: {steps}; log tail "
+            f"{res['log_tail']}")
+    require(launches > 0, "the paper-scale build did not launch the bit "
+                          "scatter kernel")
+    hdr, _ = read_compact_header(root / "paper.cobs_compact")
+    wide, _ = read_compact_header(root / "paper_wide.cobs_compact")
+    sigs = {p.signature_size for p in hdr.parameters}
+    pages = len(hdr.parameters)
+    require(pages == -(-PAPER_DOCS // (8 * hdr.page_size)) and len(sigs) == 1,
+            f"{pages} pages of Bloom sizes {sigs}")
+    require(len(wide.parameters) == 1
+            and wide.page_size == pages * hdr.page_size,
+            f"repack gave {len(wide.parameters)} pages of {wide.page_size} B")
+    sig = sigs.pop()
+    matrix_bytes = sig * hdr.page_size * pages
+    # out of core: the pages are written as they are built, so the
+    # process stops growing once its fixed buffers are in place (the
+    # pinned upload rings of the pages built at once, the document list,
+    # the workers' heaps); from a quarter of the pages written to the end
+    # of the construction its peak grows by less than half of what the
+    # remaining pages' matrix would add if it were held
+    samples = res["samples"]
+    quarter = max((r for _, r, n in samples if n <= pages // 4),
+                  default=res["base_rss"])
+    peak = max((r for t, r, _ in samples if t <= steps["construct_s"]),
+               default=res["base_rss"])
+    late = peak - quarter
+    late_pages = pages - pages // 4
+    late_bytes = sig * hdr.page_size * late_pages
+    rings = (min(res["threads"], pages) * UPLOAD_BUFFERS * 2 * 4
+             * UPDATE_CHUNK)
+    curve = [max((r for _, r, n in samples if n <= q * pages // 4),
+                 default=res["base_rss"]) for q in range(1, 4)]
+    k = ps.TERM_SIZE
+    updates = PAPER_DOCS * (PAPER_DOC_SIZE - k + 1)
+    print(f"phase 14 build ({card}): compact-construct --memory "
+          f"{PAPER_MEMORY} on the card {steps['construct_s']:.1f} s "
+          f"({updates / steps['construct_s'] / 1e6:.1f} M updates/s, "
+          f"{updates} updates, k={k}, h=1, fpr 0.3, canonical), repack "
+          f"{steps['repack_s']:.1f} s; {pages} pages of {hdr.page_size} B "
+          f"x {sig} rows ({matrix_bytes / 1e6:.1f} MB of matrix), "
+          f"repacked to 1 page of {wide.page_size} B; {res['sub_indices']} "
+          f"page sub-indices written and combined into {pages} pages; "
+          f"scatter kernel launches {launches}; the build process "
+          f"({res['threads']} threads): RSS {res['base_rss'] / 1e9:.3f} "
+          f"GB before (torch, CUDA context, kernel); peak with 1/4, 2/4, "
+          f"3/4 of the pages written "
+          + ", ".join(f"{r / 1e9:.3f}" for r in curve)
+          + f" GB, through the construction "
+          f"{peak / 1e9:.3f} GB ("
+          f"+{late / 1e9:.3f} GB over the last {late_pages} pages, under "
+          f"half of their {late_bytes / 1e9:.3f} GB of matrix; "
+          f"{min(res['threads'], pages)} pinned upload rings "
+          f"{rings / 1e9:.3f} GB), with repack "
+          f"{max([peak] + [r for _, r, _ in samples]) / 1e9:.3f} GB "
+          f"(sampled every 0.2 s)")
+    print("phase 14 build stages (summed over pages and workers): "
+          + " ".join(f"{n}={s:.3f}s" for n, s in res["stages"].items()))
+    require(late < late_bytes / 2,
+            f"the construction's peak RSS grew {late / 1e9:.3f} GB over "
+            f"its last {late_pages} pages, not under half of their "
+            f"{late_bytes / 1e9:.3f} GB of matrix")
+    split = _paper_split(torch, cs, root, sig, hdr.page_size, card)
+    return {"gen_s": gen_s, "build": steps, "scatter_launches": launches,
+            "pages": pages, "sub_indices": res["sub_indices"],
+            "matrix_bytes": matrix_bytes,
+            "rss": (res["base_rss"], quarter, peak),
+            "page_size": hdr.page_size, "split": split}
+
+
+def _paper_split(torch, cs, root: Path, sig: int, page_size: int,
+                 card: str) -> dict:
+    """Phase 14 (b): the first subdirectory (1,000 documents: one page of
+    the main build's page size) compact-constructed on the card at a
+    --memory that makes the classic batch rule (construct/classic.py:
+    memory // (sig / 8) // threads documents) cut each page into
+    quarter-page classic sub-indices, combined per page, and at
+    PAPER_MEMORY (one sub-index a page); the files are equal byte for
+    byte. The scatter's count at 0 before each build."""
+    import io
+
+    from cobs_tpu_torch.cli.main import main as cli
+    from cobs_tpu_torch.fmt.compact import read_compact_header
+    from cobs_tpu_torch.settings import settings
+
+    memory = 8 * page_size // 4 * (sig // 8) * settings.threads
+    runs = {}
+    for label, mem in (("split", str(memory)), ("whole", PAPER_MEMORY)):
+        log = io.StringIO()
+        cs.LAUNCHES = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(log):
+            rc = cli(["compact-construct", str(root / "docs" / "000"),
+                      str(root / f"{label}.cobs_compact"), "--memory", mem,
+                      "-p", str(page_size), "--clobber", "--device",
+                      DEVICE])
+        torch.cuda.synchronize()
+        runs[label] = {"rc": rc, "launches": cs.LAUNCHES,
+                       "sub_indices":
+                           log.getvalue().count("Construct Classic Index"),
+                       "s": time.perf_counter() - t0}
+        require(rc == 0 and cs.LAUNCHES > 0,
+                f"subdirectory 000 at --memory {mem}: {runs[label]}, log "
+                f"tail {log.getvalue()[-2000:]}")
+    pages = len(read_compact_header(root / "whole.cobs_compact")[0]
+                .parameters)
+    require(runs["split"]["sub_indices"] >= 2 * pages
+            and runs["whole"]["sub_indices"] == pages,
+            f"subdirectory 000, {pages} pages: sub-indices {runs}")
+    require(same_file(root / "split.cobs_compact",
+                      root / "whole.cobs_compact"),
+            "subdirectory 000: the split build's file != the whole's")
+    print(f"phase 14 split ({card}): subdirectory 000 (1,000 documents, "
+          f"{pages} page of {page_size} B) at --memory {memory} B: "
+          f"{runs['split']['sub_indices']} classic sub-indices combined "
+          f"per page, {runs['split']['launches']} scatter launches, "
+          f"{runs['split']['s']:.1f} s; at {PAPER_MEMORY}: "
+          f"{runs['whole']['sub_indices']} sub-indices, one a page, "
+          f"{runs['whole']['launches']} launches, {runs['whole']['s']:.1f} "
+          f"s; files byte-identical")
+    return runs
+
+
+def _paper_query(torch, qk, dh, cs, engine, Search, settings, ps,
+                 root: Path, pages: int, card: str) -> dict:
+    """Phase 14 (c)-(g): verify on every load, the kernels at this path's
+    shapes, serve, host hashing."""
+    from cobs_tpu_torch.experiments.dma_gather_bench import (
+        median_device_ms,
+    )
+
+    paper = str(root / "paper.cobs_compact")
+    wide = str(root / "paper_wide.cobs_compact")
+    n_docs, plants = ps.planted(root)
+    require(n_docs == PAPER_DOCS and len(plants) == 11,
+            f"{n_docs} documents, {len(plants)} planted")
+
+    # (c) verify: PLANT_SEQ on every load of both files
+    def opened(label, path, pages, **kw):
+        t0 = time.perf_counter()
+        s = Search(path, **kw)
+        torch.cuda.synchronize()
+        ix = s.index_files[0]
+        require(ix.num_pages == pages, f"{label}: {ix.num_pages} pages")
+        ranking = ps.check_planted(s, n_docs, plants, label)
+        return s, ranking, time.perf_counter() - t0
+
+    loads, rankings = {}, {}
+    s, rankings["coalesced"], loads["coalesced"] = opened(
+        "paper.cobs_compact held, coalesced at load", paper, 1)
+    require(isinstance(s.index_files[0], engine.DeviceIndex), "not held")
+    del s
+    with environ(COBS_TPU_COALESCE_PAGES="0"):
+        s98, rankings["P=98"], loads["P=98"] = opened(
+            "paper.cobs_compact held, COBS_TPU_COALESCE_PAGES=0", paper,
+            pages)
+        old = settings.streamed_host_score
+        settings.streamed_host_score = "host"
+        try:
+            _, rankings["streamed host"], loads["streamed host"] = opened(
+                "paper.cobs_compact streamed, host scoring, "
+                "COBS_TPU_COALESCE_PAGES=0", paper, pages, streamed=True)
+        finally:
+            settings.streamed_host_score = old
+    sw, rankings["wide"], loads["wide"] = opened(
+        "paper_wide.cobs_compact held", wide, 1)
+    require(all(r == rankings["coalesced"] for r in rankings.values()),
+            "the planted rankings differ between loads")
+    print(f"phase 14 verify: {len(plants)} planted documents at 70/70 and "
+          f"every other "
+          f"score below 0.9 x 70 on each load, rankings equal; load s "
+          + " ".join(f"{n}={t:.2f}" for n, t in loads.items()))
+
+    # (d) the hash kernel and K1 at this path's shapes, exact
+    k, B, T = ps.TERM_SIZE, PAPER_BATCH, PAPER_TERMS
+    queries = ps.random_queries(B, T)
+    kern = {}
+    for label, ix in (("P=98", s98.index_files[0]),
+                      ("P=1", sw.index_files[0])):
+        P, W = ix.num_pages, ix.word_width
+        qdata, qlens = engine._device_hash_args(ix, engine.QueryBytes(
+            queries))
+        sig, off, mag = ix.page_tables
+        args = (qdata, qlens, k, 1, 1, sig, off, ix.zero_row, mag)
+        rows = dh.rows_from_queries(*args)
+        plain_rows, hash_plain_ms = event_ms(
+            torch, lambda: dh.rows_from_queries_reference(*args))
+        host_rows = engine._rows_tensor(ix, engine.create_hashes(
+            queries, k, 1, 1))
+        torch.cuda.synchronize()
+        require(torch.equal(rows, plain_rows), f"{label}: hash kernel != "
+                                               "plain")
+        require(torch.equal(rows, host_rows), f"{label}: hash kernel != "
+                                              "native host hashing")
+        del plain_rows, host_rows
+        got = qk.gather_and_count(ix.matrix, rows, 1)
+        want, k1_plain_ms = event_ms(
+            torch, lambda: qk.gather_and_count_reference(ix.matrix, rows, 1))
+        err = max_err(got, want)
+        require(err == 0, f"{label}: K1 != plain, max error {err}")
+        del got, want
+        torch.cuda.empty_cache()
+        unique = torch.unique(rows).numel()
+        k1_ms = median_device_ms(
+            torch, lambda i: qk.gather_and_count(ix.matrix, rows, 1),
+            reps=10)
+        hash_ms = median_device_ms(
+            torch, lambda i: dh.rows_from_queries(*args))
+        gathered = B * T * P * W * 4
+        k1_bound, k1_by = bound(unique * W * 4 + rows.numel() * 4
+                                + B * P * W * 32 * 4, B * T * P * W * 32)
+        hash_bound, hash_by = bound(
+            qdata.numel() + B * 4 + rows.numel() * 4 + 24 * P,
+            B * T * (3 * k + 40 + 15 + 2 * P))
+        kern[label] = {
+            "k1": {"ms": k1_ms, "plain_ms": k1_plain_ms,
+                   "bound_ms": k1_bound, "bound_by": k1_by},
+            "hash": {"ms": hash_ms, "plain_ms": hash_plain_ms,
+                     "bound_ms": hash_bound, "bound_by": hash_by}}
+        print(f"phase 14 kernels at {label} (B={B}, T={T}, h=1, W={W} words "
+              f"per page on the card, {card}): hash kernel == plain == "
+              f"native host hashing, {hash_ms:.4f} ms (plain, host numpy, "
+              f"{hash_plain_ms:.1f} ms; bound {hash_bound:.4f} ms, "
+              f"{hash_by}); K1 == plain exactly, {k1_ms:.4f} ms (plain "
+              f"{k1_plain_ms:.1f} ms; bound {k1_bound:.4f} ms, {k1_by}: "
+              f"{unique} distinct rows; {gathered / k1_ms / 1e6:.0f} GB/s "
+              f"of gathered rows)")
+        del rows, qdata, qlens
+    del s98
+    torch.cuda.empty_cache()
+
+    scatter = _paper_scatter(torch, cs, ps, root, card)
+
+    # (e) serve: search_stream held on the card, the counts at 0 just
+    # before; every batch of the two rounds and the warm-up group counted
+    qk.LAUNCHES = dh.LAUNCHES = 0
+    served = ps.serve(root, PAPER_QUERIES, PAPER_BATCH, PAPER_MEGA, False,
+                      num_kmers=T, device=DEVICE)
+    torch.cuda.synchronize()
+    launches = (qk.LAUNCHES, dh.LAUNCHES)
+    batches = PAPER_MEGA + 2 * (PAPER_QUERIES // PAPER_BATCH)
+    require(0 < launches[0] == launches[1] < batches,
+            f"serve: {launches} launches of K1 and the hash kernel for "
+            f"{batches} batches (groups of {PAPER_MEGA} expected)")
+    s = served.pop("search")
+    allq = ps.random_queries(PAPER_QUERIES, T)
+    # the served rounds' first group, at their mega
+    window = allq[:B * PAPER_MEGA]
+    old_mega = settings.mega_batches
+    settings.mega_batches = PAPER_MEGA
+    try:
+        t0 = time.perf_counter()
+        grouped = list(s.search_stream(window, 0.8, 100, batch_size=B))
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        # one group: one launch of each kernel
+        busy_us, top = device_busy_us(
+            torch,
+            lambda: list(s.search_stream(window, 0.8, 100, batch_size=B)),
+            {"gather_count_kernel": 1, "device_hash_kernel": 1})
+        settings.mega_batches = 1
+        one = list(s.search_stream(window, 0.8, 100, batch_size=B))
+    finally:
+        settings.mega_batches = old_mega
+    busy = None if busy_us is None else busy_us / 1e3 / wall_ms
+    require(pairs(grouped) == pairs(one), "the served group of "
+            f"{PAPER_MEGA} batches ranks differently from one batch at a "
+            "time")
+    group = paper_group_kernels(torch, qk, dh, engine, s, window, B, card)
+    checked = allq[:PAPER_CHECKED]
+    held = list(s.search_stream(checked, 0.8, 100, batch_size=B))
+    old = settings.streamed_host_score
+    settings.streamed_host_score = "host"
+    try:
+        hs = Search(wide, streamed=True)
+        hs.timer_.reset()
+        host = list(hs.search_stream(checked, 0.8, 100, batch_size=B))
+        host_hash_ms = hs.timer_.get("hashes") / (PAPER_CHECKED // B) * 1e3
+    finally:
+        settings.streamed_host_score = old
+    require(pairs(held) == pairs(host), "the first served responses != "
+                                        "streamed host scoring's")
+    del hs
+    # COBS_TPU_DEVICE_HASH=host on the held file: native host hashing
+    settings.device_hash = "host"
+    try:
+        s.timer_.reset()
+        dev_host = s.search_batch(checked[:B], 0.8, 100)
+        host_hashed_ms = s.timer_.get("hashes") * 1e3
+    finally:
+        settings.device_hash = "auto"
+    require(pairs(dev_host) == pairs(held[:B]), "device_hash=host ranks "
+                                                "differently")
+    del s
+    torch.cuda.empty_cache()
+    # the cost of hashing on the host at phase 3's shape (64 x 1,030 bp):
+    # native against the numpy it replaced, same queries, same call
+    q64 = [q.encode() for q in acgt_queries(np.random.default_rng(2), 64,
+                                            1030)]
+    nat = np.concatenate(engine.create_hashes(q64, k, 1, 1))
+    require(np.array_equal(nat, numpy_hashes(q64, k)),
+            "native hashes != numpy hashes")
+    walls = {"native": [], "numpy": []}
+    for how in ("native", "numpy", "numpy", "native", "native", "numpy"):
+        t0 = time.perf_counter()
+        if how == "native":
+            engine.create_hashes(q64, k, 1, 1)
+        else:
+            numpy_hashes(q64, k)
+        walls[how].append((time.perf_counter() - t0) * 1e3)
+    native_ms = statistics.median(walls["native"])
+    numpy_ms = statistics.median(walls["numpy"])
+
+    # (f) --streamed: device scoring from the host mmap
+    streamed = ps.serve(root, PAPER_STREAMED_QUERIES, PAPER_BATCH,
+                        PAPER_MEGA, True, num_kmers=T, device=DEVICE)
+    del streamed["search"]
+    torch.cuda.empty_cache()
+    print(f"phase 14 serve ({card}): search_stream held, B={B}, mega "
+          f"{PAPER_MEGA}, -t 0.8 -l 100, {PAPER_QUERIES} random 1,030 bp "
+          f"queries: open+upload {served['open_s']:.2f} s, "
+          + ", ".join(f"{q:.0f}" for q in served["qps"])
+          + f" q/s in two rounds; K1 / hash launches {launches[0]} / "
+          f"{launches[1]} for {batches} batches "
+          f"({launches[0] / batches:.3f} per batch); "
+          + (f"card busy share not measured (the profiler windows lost "
+             f"records: {top})" if busy is None else
+             f"card {100 * busy:.1f} % busy over {len(window)} queries "
+             f"({busy_us / 1e3:.2f} of {wall_ms:.2f} ms; largest: "
+             + "; ".join(f"{n[:50]} {us / 1e3:.2f} ms" for us, n in top[:3])
+             + ")")
+          + f"; its first group == one batch at a time (mega 1); the "
+          f"first {PAPER_CHECKED} responses == streamed host "
+          f"scoring's; --streamed (device scoring) "
+          + ", ".join(f"{q:.0f}" for q in streamed["qps"])
+          + f" q/s over {PAPER_STREAMED_QUERIES} queries")
+    print(f"phase 14 host hashing (native): streamed host scoring "
+          f"`hashes` {host_hash_ms:.2f} ms per batch of {B}; "
+          f"COBS_TPU_DEVICE_HASH=host {host_hashed_ms:.2f} ms per batch "
+          f"of {B} (rankings equal to device hashing); at phase 3's shape "
+          f"(64 x 1,030 bp) native {native_ms:.2f} ms against numpy "
+          f"{numpy_ms:.2f} ms in this call (hashes equal)")
+    return {"kernels": kern, "scatter": scatter, "group": group,
+            "served_launches": launches,
+            "served_batches": batches, "qps": served["qps"],
+            "streamed_qps": streamed["qps"], "busy": busy,
+            "host_hash_ms": host_hash_ms, "native_ms": native_ms,
+            "numpy_ms": numpy_ms}
+
+
+def paper_group_kernels(torch, qk, dh, engine, s, queries, B: int,
+                        card: str) -> dict:
+    """The hash kernel and K1 against their plain versions, exact, at the
+    launch shape of the served rounds: one group's payload
+    (group_payload), here len(queries) // B batches of B on the held
+    one-page index; K1 timed there beside its bound."""
+    from cobs_tpu_torch.experiments.dma_gather_bench import (
+        median_device_ms,
+    )
+
+    ix = s.index_files[0]
+    batches = [queries[i:i + B] for i in range(0, len(queries), B)]
+    cat, flagged = group_payload(engine, s, batches)
+    require(flagged == 0, f"phase 14 group: {flagged} queries flagged")
+    rows = group_kernels_exact(torch, qk, dh, engine, ix, cat,
+                               f"phase 14 group, K={len(batches)}")
+    torch.cuda.empty_cache()
+    shape = tuple(rows.shape)
+    Bg, T, h, P = shape
+    W = ix.word_width
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = qk.plan_gather_count(Bg, T, h, P, W, sm)
+    ms = median_device_ms(
+        torch, lambda i: qk.gather_and_count(ix.matrix, rows, ix.num_hashes),
+        reps=10)
+    unique = torch.unique(rows).numel()
+    bound_ms, bound_by = bound(unique * W * 4 + rows.numel() * 4
+                               + Bg * P * W * 32 * 4, Bg * T * h * P * W * 32)
+    print(f"phase 14 group ({card}): the served launch shape, rows "
+          f"{list(shape)} over {W} words ({len(batches)} batches of {B} "
+          f"in one payload): hash kernel == plain, K1 == plain exactly "
+          f"(plan: cluster {plan.cluster}, {plan.n_slices} slices of "
+          f"{plan.slice_w} words, grid {plan.grid}); K1 {ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {unique} distinct rows)")
+    return {"shape": shape, "k1_ms": ms, "k1_bound_ms": bound_ms}
+
+
+def _paper_scatter(torch, cs, ps, root: Path, card: str) -> dict:
+    """Phase 14 (d): the scatter kernel against its plain version on one
+    upload chunk of this build: the first documents of page 0 in the
+    construction's order, into that page's word-major words."""
+    from cobs_tpu_torch.construct.bitmatrix import doc_row_indices
+    from cobs_tpu_torch.construct.device import UPDATE_CHUNK
+    from cobs_tpu_torch.experiments.dma_gather_bench import (
+        median_device_ms,
+    )
+    from cobs_tpu_torch.fmt.compact import read_compact_header
+    from cobs_tpu_torch.ingest.document_list import DocumentList
+
+    hdr, _ = read_compact_header(root / "paper.cobs_compact")
+    sig = hdr.parameters[0].signature_size
+    # the construction orders documents by size, then path: every size is
+    # equal, so page 0 opens with the first subdirectory's documents, and
+    # only they are listed (listing all 100,000 costs as much as the
+    # listing inside the build)
+    docs = DocumentList(root / "docs" / "000")
+    docs.sort_by_size()
+    rows, docs_of, n = [], [], 0
+    for d, entry in enumerate(docs.list()[:8 * hdr.page_size]):
+        for w in entry.term_windows(ps.TERM_SIZE):
+            r = doc_row_indices(w, sig, 1, 1)[0].astype(np.int32)
+            rows.append(r)
+            docs_of.append(np.full(r.size, d, dtype=np.int32))
+            n += r.size
+        if n >= UPDATE_CHUNK:
+            break
+    r = torch.from_numpy(np.concatenate(rows)[:UPDATE_CHUNK]).to(DEVICE)
+    d = torch.from_numpy(np.concatenate(docs_of)[:UPDATE_CHUNK]).to(DEVICE)
+    del rows, docs_of
+    Wc, R1 = -(-hdr.page_size // 4), sig + 1
+    words = torch.zeros((Wc, R1), dtype=torch.int32, device=DEVICE)
+    got = cs.construct_scatter(words.clone(), r, d)
+    want, plain_ms = event_ms(
+        torch, lambda: cs.construct_scatter_reference(words.clone(), r, d))
+    require(torch.equal(got, want), "construct_scatter on a paper-scale "
+                                    "chunk: kernel != plain")
+    # warm: successive launches OR the same updates into the same words
+    ms = median_device_ms(torch, lambda i: cs.construct_scatter(words, r, d))
+    distinct = torch.unique(r.long() * Wc + (d.long() >> 5)).numel()
+    bound_ms, bound_by = bound(8 * r.numel() + 2 * 4 * distinct, r.numel())
+    print(f"phase 14 construct_scatter on one upload chunk of this build "
+          f"(Wc={Wc}, R1={R1}, {r.numel()} updates, documents "
+          f"0-{int(d.max())} of page 0, {card}): == plain exactly; "
+          f"{ms:.4f} ms warm, plain {plain_ms:.2f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {distinct} distinct words)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def phase_soak(torch, qk, dh, cs, card: str) -> dict:
+    """Phase 15: cobs_tpu_torch/experiments/server_soak.py on the card,
+    then again with the scorer's phase timers on."""
+    from cobs_tpu_torch.experiments import server_soak
+
+    qk.LAUNCHES = dh.LAUNCHES = cs.LAUNCHES = 0
+    res = server_soak.soak(SOAK_SECONDS, 4, DEVICE)
+    torch.cuda.synchronize()
+    launches = (qk.LAUNCHES, dh.LAUNCHES, cs.LAUNCHES)
+    st = res["stats"]
+    require(res["ok"], f"soak failed (harness exit 1): {res['errors'][:5]}, "
+                       f"batch_failures {st.get('batch_failures')}, open "
+                       f"connections {res['open_conns']}")
+    require(res["reloads"] >= 20, f"only {res['reloads']} reloads")
+    require(min(launches) > 0, f"the soak launched {launches}")
+    require(not any(k in st for k in server_soak.PHASES),
+            "phase timers without COBS_TPU_SERVER_DEBUG")
+    print(f"phase 15 soak ({card}, {SOAK_SECONDS:.0f} s, 4 pipelining "
+          f"clients, reload every second, chaos): {res['exact']} responses "
+          f"exact, {res['reloads']} reloads, {res['chaos_conns']} chaos "
+          f"connections, {st.get('bad_requests', 0)} bad requests and "
+          f"{st.get('query_errors', 0)} query errors answered, "
+          f"{st.get('batch_failures', 0)} batch failures, "
+          f"{res['open_conns']} connections left open; {st['batches']} "
+          f"batches, K1 / hash / scatter launches {launches}; harness exit 0")
+    with environ(COBS_TPU_SERVER_DEBUG="1"):
+        dbg = server_soak.soak(SOAK_DEBUG_SECONDS, 4, DEVICE)
+    st = dbg["stats"]
+    require(dbg["ok"], f"debug soak failed: {dbg['errors'][:5]}")
+    require({k for k in st if k.startswith("t_")} == set(server_soak.PHASES),
+            f"COBS_TPU_SERVER_DEBUG: stats keys {sorted(st)}")
+    per = {k: 1e3 * st[k] / st["batches"] for k in server_soak.PHASES}
+    print(f"phase 15 soak with COBS_TPU_SERVER_DEBUG=1 "
+          f"({SOAK_DEBUG_SECONDS:.0f} s): {dbg['exact']} responses exact, {st['batches']} batches; "
+          f"scorer ms per batch: "
+          + " ".join(f"{k}={v:.4f}" for k, v in per.items()))
+    return {"exact": res["exact"], "reloads": res["reloads"],
+            "phases_ms": per}
+
+
 def main() -> int:
     import torch
 
@@ -2831,6 +3552,12 @@ def main() -> int:
                          settings, cli_main, card)
     con_mesh = con.pop("sharded")
     cli = con.pop("cli")
+    torch.cuda.empty_cache()
+    paper = phase_paper_scale(torch, qk, dh, cs, engine, Search, settings,
+                              card)
+    torch.cuda.empty_cache()
+    phase_soak(torch, qk, dh, cs, card)
+    pk = paper["kernels"]
 
     entries = {
         "gather_and_count": dict(
@@ -2846,7 +3573,15 @@ def main() -> int:
             cli_shim_launches=cli["shim"]["gather_and_count"],
             cli_trace_kernels=cli["trace"]["gather_count_kernel"],
             shard_ms=mesh["k1"]["ms"], shard_plain_ms=mesh["k1"]["plain_ms"],
-            shard_bound_ms=mesh["k1"]["bound_ms"], **ref["k1"]),
+            shard_bound_ms=mesh["k1"]["bound_ms"],
+            paper_served_launches=paper["served_launches"][0],
+            paper_served_batches=paper["served_batches"],
+            paper_group_ms=paper["group"]["k1_ms"],
+            paper_group_bound_ms=paper["group"]["k1_bound_ms"],
+            **{f"paper_{p}_{key}": pk[p]["k1"][key]
+               for p in ("P=98", "P=1") for key in ("ms", "plain_ms",
+                                                     "bound_ms")},
+            **ref["k1"]),
         "rows_from_queries": dict(
             launches=ref["launches"]["rows_from_queries"], max_abs_err=0,
             library_ms=None,
@@ -2861,7 +3596,13 @@ def main() -> int:
             shard_ms=mesh["hash"]["ms"],
             shard_plain_ms=mesh["hash"]["plain_ms"],
             shard_bound_ms=mesh["hash"]["bound_ms"],
-            control_ms=hash5["phase 3"]["control_ms"], **ref["hash"]),
+            control_ms=hash5["phase 3"]["control_ms"],
+            paper_served_launches=paper["served_launches"][1],
+            paper_served_batches=paper["served_batches"],
+            **{f"paper_{p}_{key}": pk[p]["hash"][key]
+               for p in ("P=98", "P=1") for key in ("ms", "plain_ms",
+                                                     "bound_ms")},
+            **ref["hash"]),
         "dma_gather_rows": dict(
             launches=k2_launches, max_abs_err=0, ms=k2["ms"],
             plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
@@ -2871,7 +3612,11 @@ def main() -> int:
             sharded_launches=con_mesh["launches"],
             cli_shim_launches=cli["shim"]["construct_scatter"],
             shard_ms=con_mesh["ms"], shard_plain_ms=con_mesh["plain_ms"],
-            shard_bound_ms=con_mesh["bound_ms"], **con),
+            shard_bound_ms=con_mesh["bound_ms"],
+            paper_launches=paper["scatter_launches"],
+            paper_ms=paper["scatter"]["ms"],
+            paper_plain_ms=paper["scatter"]["plain_ms"],
+            paper_bound_ms=paper["scatter"]["bound_ms"], **con),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],

@@ -530,8 +530,9 @@ def cmd_benchmark_fpr(argv):
 def cmd_serve(argv):
     """The resident batching query server (query/server.py): the index
     stays on the card and client queries coalesce into device batches.
-    SIGTERM drains queued requests and the batches in flight, removes a
-    Unix socket file and exits 0."""
+    SIGTERM or SIGINT drains queued requests and the batches in flight
+    (for at most server.STOP_GRACE_S), removes a Unix socket file and
+    exits 0; a second SIGTERM or SIGINT ends the process at once."""
     p = argparse.ArgumentParser(prog="cobs serve")
     p.add_argument("-i", "--index", action="append", default=[],
                    help="path to index file(s)")
@@ -617,14 +618,16 @@ def cmd_serve(argv):
           f"linger_ms={args.linger_ms}", flush=True)
 
     def _graceful(signum, frame):
-        # drain queued requests and the batches in flight, then exit 0
-        raise KeyboardInterrupt
+        # drain queued requests and the batches in flight, then exit 0;
+        # a second SIGTERM or SIGINT ends the process at once
+        for s in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(s, signal.SIG_DFL)
+        server.stop()
 
-    signal.signal(signal.SIGTERM, _graceful)
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, _graceful)
     try:
         server.serve_forever(log_interval=args.log_interval)
-    except KeyboardInterrupt:
-        pass
     finally:
         server.close()
     return 0

@@ -19,7 +19,7 @@ query (`score_batch`) or the top k (score, doc) pairs (`score_topk`) in
 the reference's (score desc, doc asc) order. The row ids come either from
 the device (a `QueryBytes` payload: the raw query bytes are uploaded and
 `ops.device_hash.rows_from_queries` hashes them on the index's device) or
-from the host (per-query numpy XXH64 from `create_hashes`, turned into
+from the host (per-query XXH64 from `create_hashes`, turned into
 row ids by `DeviceIndex.row_indices` and uploaded).
 
 `score_batch_async` / `score_topk_async` enqueue that work and return a
@@ -45,8 +45,6 @@ import numpy as np
 import torch
 
 from cobs_tpu_torch import native
-from cobs_tpu_torch.core.canonical import canonicalize_batch
-from cobs_tpu_torch.core.xxh64 import xxh64_multi_seed
 from cobs_tpu_torch.fmt import classic as fmt_classic
 from cobs_tpu_torch.fmt import compact as fmt_compact
 from cobs_tpu_torch.fmt.magic import FileIOError
@@ -494,28 +492,39 @@ def create_hashes(queries: list[bytes], term_size: int, num_hashes: int,
                   canonicalize: int) -> list[np.ndarray]:
     """Per query: uint64 [num_terms, num_hashes] raw (un-modded) XXH64
     (reference: cobs/query/classic_search.cpp:66-107). All windows of the
-    batch are canonicalized and hashed in one vectorized pass."""
+    batch are canonicalized and hashed in one call of the native library
+    (`native.window_hashes`); it raises if the library cannot be built.
+    Errors are cobs_tpu's, raised for the first query at fault in batch
+    order."""
     if canonicalize not in (0, 1):
         raise ValueError(f"Unknown canonicalize value {canonicalize}")
     windows = []
     for q in queries:
         w = sliding_windows(np.frombuffer(q, dtype=np.uint8), term_size)
         if w.shape[0] == 0:
+            # cobs_tpu hashes query by query: an invalid query before this
+            # one raises first
+            if windows:
+                _hash_windows(windows, 1, canonicalize)
             raise ValueError(
                 f"query too short, needs to be at least {term_size} "
                 "characters long")
         windows.append(w)
     if not windows:
         return []
-    allw = np.concatenate(windows)
-    if canonicalize == 1:
-        allw, good = canonicalize_batch(allw)
-        if not good.all():
-            raise ValueError("Invalid DNA base pair in query string. "
-                             "Only ACGT are allowed.")
-    hashes = xxh64_multi_seed(np.ascontiguousarray(allw), num_hashes)
+    hashes = _hash_windows(windows, num_hashes, canonicalize)
     ends = np.cumsum([w.shape[0] for w in windows])
     return np.split(hashes, ends[:-1])
+
+
+def _hash_windows(windows: list, num_hashes: int,
+                  canonicalize: int) -> np.ndarray:
+    hashes, good = native.window_hashes(np.concatenate(windows),
+                                        num_hashes, canonicalize)
+    if canonicalize == 1 and not good:
+        raise ValueError("Invalid DNA base pair in query string. "
+                         "Only ACGT are allowed.")
+    return hashes
 
 
 def _host_rows(index, hashes_list, dtype) -> np.ndarray:

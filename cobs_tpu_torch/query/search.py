@@ -509,7 +509,7 @@ class Search:
         loop.
 
         Queries are cut into batches of `batch_size`, in order. The host
-        stage (validation and padding, or numpy hashing) runs on one
+        stage (validation and padding, or native hashing) runs on one
         worker thread ahead of the calling thread when any index hashes
         on the host, and inline when all hash on the device
         (_HASH_AHEAD); the worker makes no CUDA call. The calling thread uploads,

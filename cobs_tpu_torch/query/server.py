@@ -61,6 +61,9 @@ from cobs_tpu_torch.utils.misc import random_sequence_rng
 from cobs_tpu_torch.utils.timer import Timer
 
 _STOP = object()
+#: seconds the scorer has after stop() to answer what is queued and in
+#: flight; serve_forever() and close() stop waiting for it then
+STOP_GRACE_S = 60.0
 
 
 class _LazyResult:
@@ -303,6 +306,7 @@ class QueryServer:
         # rolling end-to-end (intake -> response enqueue) latencies, ms
         self._lat = collections.deque(maxlen=4096)
         self._started = False
+        self._stop_at = None   # time.monotonic() of the first stop()
         self._closed = False
 
     def _bind_search(self, search: Search) -> None:
@@ -398,26 +402,52 @@ class QueryServer:
               for _ in range(self.batch_size)]
         self.search.search_batch(qs, self.t_floor, self.limit)
 
+    def stop(self) -> None:
+        """Let the scorer answer what is queued and in flight, then end,
+        so that serve_forever() returns; call close() after it. It only
+        enqueues, so a signal handler may call it (the CLI's SIGTERM and
+        SIGINT): an exception raised from a handler into serve_forever's
+        Thread.join would make CPython mark the still-running scorer
+        thread as stopped, and close() would then not wait for it. Only
+        the first call enqueues, so a handler that interrupts close()'s
+        call never waits on the queue's lock held by the same thread.
+        A scorer that has not ended STOP_GRACE_S after the first call
+        (a device hang) is waited for no longer."""
+        if self._stop_at is None:
+            self._stop_at = time.monotonic()
+            self._rq.put(_STOP)
+
+    def _grace_left(self) -> float | None:
+        """Seconds the scorer still has to end after stop(), or None
+        before any stop()."""
+        if self._stop_at is None:
+            return None
+        return max(0.0, self._stop_at + STOP_GRACE_S - time.monotonic())
+
     def serve_forever(self, log_interval: float = 0.0) -> None:
-        """start() and block until close() (for the CLI).
+        """start() and block until the scorer ends (stop() or close();
+        for the CLI), or STOP_GRACE_S after stop() if it has not.
 
         log_interval > 0 prints a RESULT line (the reference's benchmark
         line protocol, reference: src/cobs.cpp:647-662) every that many
         seconds with the interval's throughput and the counters.
         """
         self.start()
-        if log_interval <= 0:
-            self._scorer_thread.join()
-            return
         last_q = 0
         last_t = time.monotonic()
+        step = log_interval if log_interval > 0 else 1.0
         while self._scorer_thread.is_alive():
-            self._scorer_thread.join(timeout=log_interval)
-            if not self._scorer_thread.is_alive():
-                break
+            left = self._grace_left()
+            if left == 0.0:
+                return  # the scorer did not drain in time
+            self._scorer_thread.join(
+                timeout=step if left is None else min(step, left))
+            now = time.monotonic()
+            if (not self._scorer_thread.is_alive() or log_interval <= 0
+                    or now - last_t < log_interval):
+                continue
             with self._lock:
                 st = dict(self._stats)
-            now = time.monotonic()
             q = st.get("queries", 0)
             qps = (q - last_q) / max(now - last_t, 1e-9)
             p50, p99 = self._latency_ms()
@@ -443,8 +473,8 @@ class QueryServer:
         except OSError:
             pass
         if self._started:
-            self._rq.put(_STOP)
-            self._scorer_thread.join(timeout=60)
+            self.stop()
+            self._scorer_thread.join(timeout=self._grace_left())
         with self._lock:
             conns = list(self._conns)
         for c in conns:
@@ -708,12 +738,27 @@ class QueryServer:
         queue drains the window at once instead of waiting for the next
         batch, so sparse traffic sees the device's latency, not the
         window's depth.
+
+        With COBS_TPU_SERVER_DEBUG set (read once, when the scorer
+        starts), `stats` also carries the seconds this loop spent in each
+        phase: t_assemble, t_drain_idle, t_group, t_hash, t_dispatch and
+        t_drain.
         """
+        debug = bool(os.environ.get("COBS_TPU_SERVER_DEBUG"))
+
+        def _mark(key, t0):
+            t1 = time.perf_counter()
+            if debug:
+                with self._lock:
+                    self._stats[key] += t1 - t0
+            return t1
+
         self._use_device()
         inflight = collections.deque()
         stopping = False
         reload_req = None
         while True:
+            t0 = time.perf_counter()
             items = []
             if not stopping and reload_req is None:
                 block = not inflight
@@ -721,6 +766,7 @@ class QueryServer:
                     self._busy_since = None  # idle: nothing in flight
                 items, stopping, reload_req = \
                     self._next_batch(block=block)
+            t0 = _mark("t_assemble", t0)
             # every pass through here is progress; a scorer blocked in
             # device work below lets the stamp go stale, which intake
             # reads as a stall (_stall_seconds)
@@ -728,6 +774,7 @@ class QueryServer:
             if not items:
                 if inflight:
                     self._emit_safe(inflight.popleft())
+                    _mark("t_drain_idle", t0)
                     continue
                 if reload_req is not None:
                     # the window is empty: no pending batch holds the old
@@ -751,6 +798,7 @@ class QueryServer:
                     groups.append(more)
                 else:
                     break
+            t0 = _mark("t_group", t0)
             try:
                 s = self.search
                 hashed_group, metas = [], []
@@ -766,8 +814,10 @@ class QueryServer:
                             sum(len(g) for g in groups))
                 if len(groups) > 1:
                     self._count("mega_dispatches")
+                t0 = _mark("t_hash", t0)
                 pendings = s._dispatch_group_async(hashed_group,
                                                    self.limit)
+                t0 = _mark("t_dispatch", t0)
                 for (g_items, qbytes, errors), pd in zip(metas,
                                                          pendings):
                     # sub-floor requests lower their batch's rank
@@ -788,6 +838,7 @@ class QueryServer:
             # sparse traffic still drains at once by the idle branch
             while len(inflight) > max(self.depth, 2 * len(groups)):
                 self._emit_safe(inflight.popleft())
+            _mark("t_drain", t0)
             self._slo_adjust()
 
     def _do_reload(self, req: _Reload):

@@ -43,7 +43,7 @@ class Settings:
                                                "auto"))
     #! where query hashing runs: "auto"/"device" = on the index's device
     #! (upload the raw query bytes; the device_hash kernel computes the
-    #! row ids before the gather-and-count kernel), "host" = the numpy
+    #! row ids before the gather-and-count kernel), "host" = the native
     #! pipeline (create_hashes + row_indices, then upload the row ids).
     #! A streamed index that scores on the host, or whose row ids
     #! exceed int32, always hashes on the host.

@@ -14,6 +14,9 @@ import torch
 import cobs_tpu
 from cobs_tpu.query import engine as jeng
 from cobs_tpu.settings import settings as jax_settings
+from cobs_tpu_torch.core.canonical import canonicalize_batch
+from cobs_tpu_torch.core.xxh64 import xxh64_multi_seed
+from cobs_tpu_torch.ingest.util import sliding_windows
 from cobs_tpu_torch.query import engine as teng
 
 torch.set_num_threads(2)
@@ -158,6 +161,69 @@ def test_create_hashes_match(rng, canonicalize, num_hashes):
 def test_create_hashes_rejects_bad_queries(query, match):
     with pytest.raises(ValueError, match=match):
         teng.create_hashes([b"ACGT" * 10, query], 31, 1, 1)
+
+
+def _numpy_hashes(queries, k, num_hashes, canonicalize):
+    """The plain version: numpy canonicalization and XXH64, per query."""
+    out = []
+    for q in queries:
+        w = sliding_windows(np.frombuffer(q, dtype=np.uint8), k)
+        if canonicalize:
+            w, _ = canonicalize_batch(w)
+        out.append(xxh64_multi_seed(np.ascontiguousarray(w), num_hashes))
+    return out
+
+
+@pytest.mark.parametrize("k", [7, 15, 31, 32, 33, 64])
+@pytest.mark.parametrize("canonicalize,num_hashes", [(1, 1), (1, 3), (0, 1),
+                                                     (0, 2)])
+def test_native_create_hashes_matches_numpy_and_cobs_tpu(rng, k,
+                                                         canonicalize,
+                                                         num_hashes):
+    """The batch's windows hashed in one native call equal the numpy
+    plain version and cobs_tpu's create_hashes, query by query; without
+    canonicalization any byte is hashed as it is."""
+    letters = BASES if canonicalize else np.frombuffer(b"ACGTNacgt$",
+                                                        np.uint8)
+    queries = [letters[rng.integers(0, letters.size, size=n)].tobytes()
+               for n in (k, k + 1, k + 13, 100 + k, 1030)]
+    got = teng.create_hashes(queries, k, num_hashes, canonicalize)
+    plain = _numpy_hashes(queries, k, num_hashes, canonicalize)
+    want = jeng.create_hashes(queries, k, num_hashes, canonicalize)
+    assert len(got) == len(plain) == len(want) == len(queries)
+    for g, p, w, q in zip(got, plain, want, queries):
+        assert g.dtype == np.uint64 and g.shape == (len(q) - k + 1,
+                                                    num_hashes)
+        np.testing.assert_array_equal(g, p)
+        np.testing.assert_array_equal(g, w)
+
+
+GOOD, SHORT, BAD = b"ACGT" * 10, b"ACGT" * 5, b"ACGTN" * 10
+
+
+@pytest.mark.parametrize("batch,canonicalize,want", [
+    ([SHORT], 1, "query too short"), ([BAD], 1, "Invalid DNA"),
+    ([GOOD, SHORT], 1, "query too short"), ([GOOD, BAD], 1, "Invalid DNA"),
+    ([GOOD, SHORT, BAD], 1, "query too short"),
+    ([GOOD, BAD, SHORT], 1, "Invalid DNA"), ([BAD, GOOD], 0, None),
+    ([BAD, SHORT], 0, "query too short"), ([b""], 1, "query too short"),
+    ([GOOD], 2, "Unknown canonicalize value 2"), ([], 1, None)])
+def test_create_hashes_errors_match_cobs_tpu(batch, canonicalize, want):
+    """The same error text as cobs_tpu's for the first query at fault in
+    batch order, or the same hashes when nothing is at fault (N is a
+    letter like any other without canonicalization)."""
+    def outcome(fn):
+        try:
+            return [h.tolist() for h in fn(batch, 31, 1, canonicalize)]
+        except ValueError as e:
+            return f"ValueError: {e}"
+
+    got = outcome(teng.create_hashes)
+    assert got == outcome(jeng.create_hashes)
+    if want is None:
+        assert isinstance(got, list) and len(got) == len(batch)
+    else:
+        assert got.startswith(f"ValueError: {want}")
 
 
 def test_topk_keeps_reference_tie_order(rng):

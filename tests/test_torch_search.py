@@ -197,11 +197,12 @@ def test_cmd_benchmark_scaling(capsys):
 
 
 def test_imports_and_answers_without_jax():
-    """Every module of the port, parallel/* included, and the
-    cobs_index_torch shim import with jax and cobs_tpu blocked; the port
-    builds an index from the golden corpus and answers from it, on one
-    device and sharded over a mesh, and runs the subtools that read
-    indexes and documents: the card's machine has no JAX."""
+    """Every module of the port, parallel/* and the paper-scale and soak
+    harnesses included, and the cobs_index_torch shim import with jax and
+    cobs_tpu blocked; the port builds an index from the golden corpus and
+    answers from it, on one device and sharded over a mesh, runs the
+    subtools that read indexes and documents, and the two harnesses at a
+    tiny size: the card's machine has no JAX."""
     code = f"""
 import sys
 sys.modules["jax"] = None
@@ -214,6 +215,9 @@ for m in pkgutil.walk_packages(cobs_tpu_torch.__path__, "cobs_tpu_torch."):
     importlib.import_module(m.name)
 assert {{"cobs_tpu_torch.parallel." + m for m in (
     "sharded", "distributed", "benchmark", "dryrun")}} <= set(sys.modules)
+assert {{"cobs_tpu_torch.experiments." + m for m in (
+    "paper_scale", "server_soak")}} <= set(sys.modules)
+from cobs_tpu_torch.experiments import paper_scale, server_soak
 from cobs_tpu_torch.cli.main import main
 from cobs_tpu_torch.ops import _build
 from cobs_tpu_torch.parallel.sharded import make_mesh
@@ -247,6 +251,13 @@ for argv in (["print-parameters", "-n", "1M"],
              ["doctor", "--device", "cpu"]):
     with contextlib.redirect_stdout(io.StringIO()):
         assert main(argv) == 0, argv
+with contextlib.redirect_stdout(io.StringIO()), \
+        contextlib.redirect_stderr(io.StringIO()):
+    paper_scale.gen(tmp / "paper", 24, 400)
+    assert paper_scale.build(tmp / "paper", "64KiB", "cpu")["repack_rc"] == 0
+    paper_scale.verify(tmp / "paper", "cpu")
+    soak = server_soak.soak(1.0, 2, "cpu")
+assert soak["ok"] and soak["exact"] > 0, soak
 shutil.rmtree(tmp)
 assert not [m for m in sys.modules
             if m.startswith(("jax.", "jaxlib", "cobs_tpu."))]

@@ -470,14 +470,17 @@ def test_tcp_endpoint_and_batching(index_file):
 
 def test_cli_serve_subprocess(index_file, tmp_path):
     """`serve --device cpu` in a subprocess: answers over the socket, and
-    SIGTERM drains and exits 0 with the socket file removed."""
+    SIGTERM drains and exits 0 with the socket file removed. The server's
+    standard error goes to a file, printed when an assertion fails."""
     sock = tmp_path / "cli.sock"
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "cobs_tpu_torch.cli.main", "serve",
-         "--device", "cpu", "-i", index_file, "--socket", str(sock),
-         "-t", "0", "--linger-ms", "1"],
-        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
-        env=dict(os.environ, COBS_TPU_MEGA_BATCHES="16"))
+    err = tmp_path / "serve.err"
+    with open(err, "wb") as err_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "cobs_tpu_torch.cli.main", "serve",
+             "--device", "cpu", "-i", index_file, "--socket", str(sock),
+             "-t", "0", "--linger-ms", "1"],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=err_file,
+            env=dict(os.environ, COBS_TPU_MEGA_BATCHES="16"))
     try:
         deadline = time.monotonic() + 60
         while not sock.exists():
@@ -495,11 +498,148 @@ def test_cli_serve_subprocess(index_file, tmp_path):
         assert proc.wait(timeout=TIMEOUT) == 0
         assert not sock.exists()
         assert proc.stdout.read().decode().startswith("SERVING ")
+    except AssertionError:
+        print("serve's standard error:\n"
+              + err.read_bytes()[-4000:].decode(errors="replace"))
+        raise
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait(timeout=TIMEOUT)
         proc.stdout.close()
+
+
+def test_serve_stop_lets_the_scorer_finish(index_file, tmp_path):
+    """stop() (what `cobs serve` calls on SIGTERM and SIGINT) ends
+    serve_forever by way of the scorer: the scorer thread has ended, not
+    only been marked so (an exception raised into serve_forever's
+    Thread.join marks a running thread stopped in CPython 3.12, and the
+    interpreter then exits under it); a second stop() enqueues nothing."""
+    srv = _server(Search(index_file, device="cpu"), tmp_path, "stop.sock")
+    done = threading.Event()
+    main = threading.Thread(target=lambda: (srv.serve_forever(),
+                                            done.set()))
+    main.start()
+    try:
+        c = Client(srv.address)
+        assert c.ask({"id": 0, "query": GOLDEN_QUERY})["id"] == 0
+        srv.stop()
+        srv.stop()
+        assert done.wait(TIMEOUT)
+        assert not srv._scorer_thread.is_alive()
+        assert srv._rq.qsize() == 0
+        c.close()
+    finally:
+        srv.close()
+        main.join(TIMEOUT)
+    assert not main.is_alive()
+    assert not os.path.exists(srv.address)
+
+
+def test_serve_stop_gives_up_on_a_stuck_scorer(index_file, tmp_path,
+                                               monkeypatch):
+    """A scorer that does not end after stop() (a device hang) holds
+    serve_forever and close() for STOP_GRACE_S in all, not for good."""
+    from cobs_tpu_torch.query import server as server_mod
+
+    monkeypatch.setattr(server_mod, "STOP_GRACE_S", 0.5)
+    srv = _server(Search(index_file, device="cpu"), tmp_path, "hang.sock")
+    release = threading.Event()
+    monkeypatch.setattr(srv, "_scorer", lambda: release.wait(TIMEOUT))
+    done = threading.Event()
+    main = threading.Thread(target=lambda: (srv.serve_forever(),
+                                            done.set()))
+    main.start()
+    try:
+        t0 = time.monotonic()
+        srv.stop()
+        assert done.wait(TIMEOUT)
+        srv.close()
+        waited = time.monotonic() - t0
+        assert 0.5 <= waited < 5.0, waited
+        assert srv._scorer_thread.is_alive()
+    finally:
+        release.set()
+        srv.close()
+        main.join(TIMEOUT)
+    assert not main.is_alive()
+
+PHASES = ("t_assemble", "t_drain_idle", "t_group", "t_hash", "t_dispatch",
+          "t_drain")
+
+
+def _stats_after_one_query(srv, debug):
+    """`stats` keys after one answered query; with the phase timers on,
+    once the scorer has drained its window (its last timer)."""
+    c = Client(srv.address)
+    try:
+        assert c.ask({"id": 0, "query": GOLDEN_QUERY})["results"]
+        deadline = time.monotonic() + TIMEOUT
+        while True:
+            st = c.ask({"cmd": "stats", "id": 1})
+            if not debug or "t_drain_idle" in st:
+                return st
+            assert time.monotonic() < deadline, sorted(st)
+            time.sleep(0.01)
+    finally:
+        c.close()
+
+
+@pytest.mark.parametrize("debug", [False, True])
+def test_debug_phase_timers_match_cobs_tpu(index_file, tmp_path, monkeypatch,
+                                           debug):
+    """With COBS_TPU_SERVER_DEBUG set, `stats` carries cobs_tpu's six
+    scorer phase timers (seconds, summed); unset, neither server has
+    them: the key sets are equal either way."""
+    if debug:
+        monkeypatch.setenv("COBS_TPU_SERVER_DEBUG", "1")
+    else:
+        monkeypatch.delenv("COBS_TPU_SERVER_DEBUG", raising=False)
+    from cobs_tpu.query.server import QueryServer as JaxServer
+
+    with _server(Search(index_file, device="cpu"), tmp_path,
+                 "t.sock") as srv:
+        mine = _stats_after_one_query(srv, debug)
+    with JaxServer(cobs_tpu.Search(index_file),
+                   unix_path=str(tmp_path / "j.sock"), threshold=0.0,
+                   linger_ms=1.0) as srv:
+        theirs = _stats_after_one_query(srv, debug)
+    assert set(mine) == set(theirs)
+    assert (set(PHASES) <= set(mine)) == debug
+    if debug:
+        assert all(isinstance(mine[k], float) and mine[k] >= 0
+                   for k in PHASES)
+
+
+@pytest.mark.parametrize("debug", [False, True])
+def test_server_soak_harness(tmp_path, debug):
+    """cobs_tpu_torch/experiments/server_soak.py on the CPU for 3 s: exit
+    0 (no wrong response, no batch failure, no connection left open),
+    exact responses and reloads counted; with COBS_TPU_SERVER_DEBUG its
+    phase line carries the six timers."""
+    env = dict(os.environ, TMPDIR=str(tmp_path))
+    env.pop("COBS_TPU_SERVER_DEBUG", None)
+    if debug:
+        env["COBS_TPU_SERVER_DEBUG"] = "1"
+    proc = subprocess.run(
+        [sys.executable, "-m", "cobs_tpu_torch.experiments.server_soak",
+         "--device", "cpu", "--seconds", "3"], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    result = {}
+    for line in proc.stdout.splitlines():
+        if line.startswith("RESULT name="):
+            fields = dict(f.split("=", 1) for f in line.split()[1:])
+            result[fields.pop("name")] = fields
+    soak = result["server_soak"]
+    assert soak["ok"] == "True" and soak["open_conns_at_close"] == "0"
+    assert soak["batch_failures"] == "0"
+    assert int(soak["exact_queries"]) > 0 and int(soak["reloads"]) > 0
+    assert int(soak["chaos_conns"]) > 0 and int(soak["bad_requests"]) > 0
+    phases = result.get("server_soak_phases")
+    assert (phases is not None) == debug
+    if debug:
+        assert {f"{k}_ms_per_batch" for k in PHASES} <= set(phases)
 
 
 def test_query_client(served):
