@@ -217,10 +217,37 @@ torch.cuda.synchronize():
    reload every second and a chaos client; the harness's exit rule (zero
    wrong responses, zero batch failures, zero connections left open)
    and at least 20 reloads; then 10 s more with COBS_TPU_SERVER_DEBUG=1,
-   printing the scorer's six phase timers per batch.
+   printing the scorer's six phase timers per batch;
+16. the ports of cobs_tpu's remaining harnesses (cobs_tpu_torch/
+   experiments/ and bench_torch.py), each printing its RESULT lines:
+   (a) runcap_serve_bench: its skewed corpus (20,480 FASTA documents in
+   4 size tiers, under bench_data/, deleted at the end) compact-built on
+   the card (the scatter launched), then loaded capped (run-coalesced:
+   page_docs set, at least two values), uncapped (another page count)
+   and plain, and 4,096 random queries of 1,000 terms served by each
+   (B=1,024, three rounds, -t 0.8 -l 100, K1 and hash launches counted):
+   the three rank them alike, and 256 document queries (64 a tier, each
+   finding its document at all its terms) and 4 full rankings of every
+   document alike; the first 256 random queries, the document queries
+   and the full rankings equal streamed host scoring's (native hashing,
+   COBS_TPU_DEVICE_HASH=host); the hash kernel and K1 equal their plain
+   versions on the served group of capped (rows [4,096, 1,000, 1, 7])
+   and on 256 queries of the others; K1 timed at each layout's group
+   beside its bound; (b) bench_torch.py's measurement on the
+   reference-default matrix, after one batch's totals equal plain K1's;
+   (c) width_sweep, one round at W in {384, 1,536, 6,144, 24,576} (2^21
+   x 384 words of bytes each), then K1 equal to its plain version on 8
+   queries at each width and timed at B=64 beside its bound; (d)
+   mega_serve_bench, one round of 64:1, 64:16 and 1024:16 over 4,096
+   queries on phase 9's file written again from its seed (-t 0 -l 100),
+   each config's rankings equal to search_batch's, fewer K1 launches
+   than batches; (e) serve_bench on that file: 2,048 queries direct and
+   from 4 client processes (B=1,024, -t 0 -l 100), every served response
+   equal to search_batch's; (f) score_batch_bench at its defaults.
 
-Prints the card's name and power limit, the build times, the times, then
-a JSON line of the kernels and, last, the device JSON line. Any failure
+Prints the card's name and power limit, the build times, the times, the
+wall seconds of each phase (`phase_seconds`), then a JSON line of the
+kernels and, last, the device JSON line. Any failure
 raises and exits non-zero; so does a machine without a CUDA card.
 """
 
@@ -297,6 +324,29 @@ def acgt_queries(rng, n: int, length: int) -> list[str]:
 
 def pairs(results) -> list:
     return [[(r.doc_name, r.score) for r in rl] for rl in results]
+
+
+#: wall seconds per phase ("build" = the kernels' build), printed on the
+#: phase_seconds line
+PHASE_SECONDS: dict = {}
+_PHASE_STACK: list = []
+
+
+@contextlib.contextmanager
+def phase_clock(phase):
+    """Adds the block's wall seconds to PHASE_SECONDS[phase], less the
+    seconds of phases timed inside it (phases 12 (d) and 13 run inside
+    phase 10)."""
+    t0 = time.perf_counter()
+    _PHASE_STACK.append(0.0)
+    try:
+        yield
+    finally:
+        inner = _PHASE_STACK.pop()
+        dt = time.perf_counter() - t0
+        PHASE_SECONDS[phase] = PHASE_SECONDS.get(phase, 0.0) + dt - inner
+        if _PHASE_STACK:
+            _PHASE_STACK[-1] += dt
 
 
 def phase_mixed_shapes(torch, qk, rng) -> int:
@@ -1274,7 +1324,8 @@ def phase_construct(torch, cs, qk, dh, card: str,
           f"{time.perf_counter() - t0:.1f} s")
     try:
         con = _phase_construct(torch, cs, card, root, lens)
-        con["cli"] = phase_cli(torch, qk, dh, cs, card, root)
+        with phase_clock(13):
+            con["cli"] = phase_cli(torch, qk, dh, cs, card, root)
         return con
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -1474,8 +1525,9 @@ def _phase_construct(torch, cs, card, root: Path, lens) -> dict:
           f"time ({prof_kernel_us / 1e3 / max(prof_count, 1):.4f} ms per "
           f"launch) against an event interval of "
           f"{prof_phases.get('device_kernel', 0.0) * 1e3:.1f} ms")
-    sharded = phase_construct_sharded(torch, cs, card, root, k, h,
-                                      walls["classic", "device"])
+    with phase_clock(12):
+        sharded = phase_construct_sharded(torch, cs, card, root, k, h,
+                                          walls["classic", "device"])
     return {"launches": launches["classic"] + launches["compact"],
             "ms": kernel_ms, "plain_ms": timing["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1869,17 +1921,23 @@ def k1_exact(torch, qk, ix, rows, what: str) -> None:
             f"{what}: K1 != plain, max error {max_err(got, want)}")
 
 
+def device_hash_args(engine, ix, cat) -> tuple:
+    """The hash kernel's arguments for a payload `cat` hashed on the card
+    over index ix."""
+    qdata, qlens = engine._device_hash_args(ix, cat)
+    sig, off, mag = ix.page_tables
+    return (qdata, qlens, ix.term_size, ix.num_hashes, ix.canonicalize,
+            sig, off, ix.zero_row, mag)
+
+
 def group_kernels_exact(torch, qk, dh, engine, ix, cat, what: str):
     """The hash kernel and K1 against their plain versions, exact, on a
     group payload `cat` hashed on the card; returns the rows."""
     require(isinstance(cat, engine.QueryBytes),
             f"{what}: the payload was not hashed on the card")
-    qdata, qlens = engine._device_hash_args(ix, cat)
-    sig, off, mag = ix.page_tables
-    args = (qdata, qlens, ix.term_size, ix.num_hashes, ix.canonicalize,
-            sig, off, ix.zero_row, mag)
+    args = device_hash_args(engine, ix, cat)
     rows = dh.rows_from_queries(*args)
-    what = f"{what} (B={len(cat)}, L={qdata.shape[1]})"
+    what = f"{what} (B={len(cat)}, L={args[0].shape[1]})"
     require(torch.equal(rows, dh.rows_from_queries_reference(*args)),
             f"{what}: hash kernel != plain")
     k1_exact(torch, qk, ix, rows, what)
@@ -3457,7 +3515,372 @@ def phase_soak(torch, qk, dh, cs, card: str) -> dict:
             "phases_ms": per}
 
 
+#: phase 16: the runcap serve (queries, batch, queries held to host
+#: scoring, document queries per tier), the mega_serve_bench configs
+#: over its queries, serve_bench's queries and clients
+RUNCAP_QUERIES, RUNCAP_BATCH, RUNCAP_CHECKED, RUNCAP_PER_TIER = \
+    4096, 1024, 256, 64
+#: the harness's default rounds: one group of 4,096 queries takes tens of
+#: ms, so a single round's best was as noisy as 39,231 against 120,043
+#: q/s for the same load in two processes on one card
+RUNCAP_ROUNDS = 3
+MEGA_CONFIGS, MEGA_QUERIES = "64:1,64:16,1024:16", 4096
+SERVE_QUERIES, SERVE_CLIENTS = 2048, 4
+
+
+def phase_harnesses(torch, qk, dh, cs, engine, Search, settings,
+                    card: str) -> dict:
+    """Phase 16: the ports of cobs_tpu's remaining harnesses on the card;
+    see the module docstring."""
+    out = {}
+    root = ROOT / "bench_data" / "runcap"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        out["runcap"] = _phase_runcap(torch, qk, dh, cs, engine, Search,
+                                      settings, root, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["bench"] = _phase_bench_torch(torch, qk, card)
+    torch.cuda.empty_cache()
+    out["width"] = _phase_width(torch, qk, card)
+    torch.cuda.empty_cache()
+    path = ROOT / "bench_data" / "phase9_reference.cobs_classic"
+    try:
+        if not path.exists():
+            write_classic_index(path, 1 << 21, 10_000, seed=9)
+        s = Search(str(path), device=DEVICE, streamed=False)
+        out["mega"] = _phase_mega(torch, qk, dh, s, settings, card)
+        out["serve"] = _phase_serve_bench(torch, qk, dh, s, path, card)
+        del s
+    finally:
+        path.unlink(missing_ok=True)
+    torch.cuda.empty_cache()
+    out["score"] = _phase_score_batch(card)
+    return out
+
+
+def runcap_doc_queries(rb, root: Path) -> tuple[list, list]:
+    """(queries, their documents' (name, terms)): RUNCAP_PER_TIER
+    documents of each tier (seed 16), each query the document's first
+    1,030 bases (all of a shorter one)."""
+    rng = np.random.default_rng(16)
+    starts = np.cumsum([0] + [n for n, _ in rb.TIERS])
+    queries, docs = [], []
+    for lo, hi in zip(starts[:-1], starts[1:]):
+        for d in rng.choice(np.arange(lo, hi), RUNCAP_PER_TIER,
+                            replace=False):
+            name = f"d{d:05d}"
+            seq = read_fasta_sequence(root / "docs" / f"{name}.fasta")[:1030]
+            queries.append(seq)
+            docs.append((name, len(seq) - 30))
+    return queries, docs
+
+
+def _phase_runcap(torch, qk, dh, cs, engine, Search, settings, root: Path,
+                  card: str) -> dict:
+    from cobs_tpu_torch.experiments import runcap_serve_bench as rb
+    from cobs_tpu_torch.experiments.dma_gather_bench import (
+        median_device_ms,
+    )
+    from cobs_tpu_torch.fmt.compact import read_compact_header
+
+    t0 = time.perf_counter()
+    rb.write_corpus(root)
+    gen_s = time.perf_counter() - t0
+    cs.LAUNCHES = 0
+    t0 = time.perf_counter()
+    idx = rb.construct_index(root, DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    scatter = cs.LAUNCHES
+    require(scatter > 0, "runcap: the build did not launch the scatter")
+    header, _ = read_compact_header(idx)
+    n_docs, n_pages = len(header.file_names), len(header.parameters)
+    require(n_docs == sum(n for n, _ in rb.TIERS), f"runcap: {n_docs} docs")
+    print(f"phase 16 runcap ({card}): {n_docs} documents written in "
+          f"{gen_s:.1f} s, compact-constructed on the card in {build_s:.1f} "
+          f"s ({scatter} scatter launches): {n_pages} pages of "
+          f"{header.page_size} B, {idx.stat().st_size >> 20} MiB")
+
+    mega = settings.mega_batches
+    settings.mega_batches = 16
+    try:
+        t0 = time.perf_counter()
+        searches = rb.load_variants(idx, DEVICE)
+        load_s = time.perf_counter() - t0
+        lay = {n: s.index_files[0] for n, s in searches.items()}
+        for n, s in searches.items():
+            print(f"phase 16 runcap ({card}): " + rb.layout_line(n, s))
+        cap = lay["capped"]
+        require(cap.page_docs is not None
+                and len(set(cap.page_docs.tolist())) >= 2,
+                f"runcap: capped is not run-coalesced with unequal runs "
+                f"(page_docs {cap.page_docs})")
+        require(lay["uncapped"].num_pages != cap.num_pages,
+                "runcap: uncapped and capped have the same page count")
+        require(lay["plain"].page_docs is None
+                and lay["plain"].num_pages == n_pages,
+                "runcap: plain is not one device page per file page")
+
+        queries = rb.random_queries(RUNCAP_QUERIES, 1000)
+        qk.LAUNCHES = dh.LAUNCHES = 0
+        best = rb.serve(searches, queries, RUNCAP_BATCH, RUNCAP_ROUNDS,
+                        RUNCAP_BATCH * 16,
+                        log=lambda m: print(f"phase 16 runcap {m}"))
+        torch.cuda.synchronize()
+        launches = (qk.LAUNCHES, dh.LAUNCHES)
+        batches = ((1 + RUNCAP_ROUNDS) * len(searches)
+                   * -(-RUNCAP_QUERIES // RUNCAP_BATCH))
+        require(min(launches) > 0, f"runcap: serving launched {launches}")
+        for name, qps in best.items():
+            print(rb.result_line(name, RUNCAP_BATCH, qps))
+
+        # rankings: the served queries, document queries of every tier,
+        # and a full ranking, alike in all three; held to host scoring
+        ranked = {n: pairs(rb.rep(s, queries, RUNCAP_BATCH, keep=True)[1])
+                  for n, s in searches.items()}
+        dq, dq_docs = runcap_doc_queries(rb, root)
+        dranked = {n: pairs(rb.rep(s, dq, RUNCAP_BATCH, keep=True)[1])
+                   for n, s in searches.items()}
+        full = {n: pairs(s.search_batch(dq[::RUNCAP_PER_TIER], 0.0, 0))
+                for n, s in searches.items()}
+        for got in (ranked, dranked, full):
+            require(got["capped"] == got["uncapped"] == got["plain"],
+                    "runcap: the variants rank differently")
+        for res, (name, terms) in zip(dranked["capped"], dq_docs):
+            require((name, terms) in res,
+                    f"runcap: {name} does not score its {terms} terms")
+        require(all(len(r) == n_docs for r in full["capped"]),
+                "runcap: a full ranking is not one line per document")
+        old = settings.device_hash, settings.streamed_host_score
+        settings.device_hash = settings.streamed_host_score = "host"
+        try:
+            host = Search(str(idx), streamed=True)
+            require(isinstance(host.index_files[0], engine.StreamedIndex),
+                    "runcap: host scoring is not streamed")
+            host_q = pairs(host.search_batch(queries[:RUNCAP_CHECKED],
+                                             rb.THRESHOLD, rb.LIMIT))
+            host_d = pairs(host.search_batch(dq, rb.THRESHOLD, rb.LIMIT))
+            host_f = pairs(host.search_batch(dq[::RUNCAP_PER_TIER], 0.0, 0))
+        finally:
+            settings.device_hash, settings.streamed_host_score = old
+        require(ranked["capped"][:RUNCAP_CHECKED] == host_q
+                and dranked["capped"] == host_d and full["capped"] == host_f,
+                "runcap: the card ranks differently from host scoring")
+        hits = sum(bool(r) for r in ranked["capped"])
+        print(f"phase 16 runcap ({card}): the three variants rank "
+              f"{len(queries)} random queries alike ({hits} with a hit at "
+              f"-t 0.8), {len(dq)} document queries ({RUNCAP_PER_TIER} a "
+              f"tier, each finding its document at all its terms) and "
+              f"{len(full['capped'])} full rankings of {n_docs} lines; "
+              f"the first {RUNCAP_CHECKED} random, all document queries "
+              f"and the full rankings equal streamed host scoring's; "
+              f"loads {load_s:.2f} s for three; K1 / hash launches "
+              f"{launches} for {batches} batches")
+
+        # the kernels at this path's launch shape: one group of the
+        # served batches on each layout (exact against plain on capped's
+        # group and on a batch of RUNCAP_CHECKED of the others)
+        group = [queries[i:i + RUNCAP_BATCH]
+                 for i in range(0, RUNCAP_QUERIES, RUNCAP_BATCH)]
+        k1 = {}
+        for name, s in searches.items():
+            ix = s.index_files[0]
+            cat, flagged = group_payload(engine, s, group)
+            require(flagged == 0, f"runcap {name}: {flagged} flagged")
+            if name == "capped":
+                rows = group_kernels_exact(torch, qk, dh, engine, ix, cat,
+                                           "phase 16 runcap capped group")
+            else:
+                small, _ = group_payload(engine, s,
+                                         [queries[:RUNCAP_CHECKED]])
+                group_kernels_exact(torch, qk, dh, engine, ix, small,
+                                    f"phase 16 runcap {name}")
+                rows = dh.rows_from_queries(
+                    *device_hash_args(engine, ix, cat))
+            Bg, T, h, P = rows.shape
+            W = ix.word_width
+            unique = torch.unique(rows).numel()
+            b_ms, b_by = bound(unique * W * 4 + rows.numel() * 4
+                               + Bg * P * W * 32 * 4, Bg * T * h * P * W * 32)
+            k1[name] = {
+                "shape": [Bg, T, h, P], "W": W, "bound_ms": b_ms,
+                "bound_by": b_by,
+                "ms": median_device_ms(
+                    torch, lambda i: qk.gather_and_count(ix.matrix, rows, h),
+                    reps=10)}
+            if name == "capped":
+                _, k1[name]["plain_ms"] = event_ms(
+                    torch, lambda: qk.gather_and_count_reference(
+                        ix.matrix, rows, h))
+            del rows
+            torch.cuda.empty_cache()
+            print(f"phase 16 runcap K1 ({card}) {name}: rows {[Bg, T, h, P]} "
+                  f"over {W} words, {k1[name]['ms']:.4f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by})"
+                  + (f", plain {k1[name]['plain_ms']:.1f} ms"
+                     if "plain_ms" in k1[name] else ""))
+    finally:
+        settings.mega_batches = mega
+    return {"gen_s": gen_s, "build_s": build_s, "scatter_launches": scatter,
+            "launches": launches, "batches": batches, "qps": best,
+            "layout": {n: (ix.num_pages, ix.word_width * 4)
+                       for n, ix in lay.items()},
+            "k1": k1}
+
+
+def _phase_bench_torch(torch, qk, card: str) -> dict:
+    """bench_torch.py's measurement on the reference-default matrix,
+    after one batch's totals equal to plain K1's."""
+    import bench_torch
+    from cobs_tpu_torch.experiments import hot_loop
+
+    sig, docs, B, T, _ = bench_torch.CUDA_SIZES
+    m = hot_loop.reference_matrix(torch, sig, hot_loop.words_for(docs),
+                                  device=DEVICE)
+    ids = hot_loop.random_ids(torch, np.random.default_rng(16), 1, B, T, 1,
+                              sig, DEVICE)[0]
+    want = qk.gather_and_count_reference(m, ids, 1).sum(dim=1)
+    require(torch.equal(hot_loop.batch_totals(m, ids, 1), want),
+            "bench_torch: K1's totals != plain")
+    qk.LAUNCHES = 0
+    res = bench_torch.run(torch, DEVICE, m)
+    torch.cuda.synchronize()
+    require(qk.LAUNCHES > 0, "bench_torch did not launch K1")
+    res["launches"] = qk.LAUNCHES
+    print(f"phase 16 bench_torch ({card}): {res['queries_per_s']:.1f} "
+          f"queries/s, {res['gbps']:.1f} GB/s gathered, "
+          f"{res['ms_per_batch']:.4f} ms a batch of {B} x {T} terms "
+          f"(differenced, {res['launches']} K1 launches; one batch's totals "
+          f"== plain): {bench_torch.result_line(res)}")
+    return res
+
+
+def _phase_width(torch, qk, card: str) -> dict:
+    """width_sweep at one round (K1's launches counted); then each
+    width's K1 equal to plain on a batch of 8 queries, and timed at B=64
+    beside its bound."""
+    from cobs_tpu_torch.experiments import width_sweep
+    from cobs_tpu_torch.experiments.dma_gather_bench import (
+        median_device_ms,
+    )
+    from cobs_tpu_torch.experiments.hot_loop import random_ids
+
+    qk.LAUNCHES = 0
+    st = width_sweep.setups(torch, device=DEVICE)
+    for s in st:
+        s["run"].round()
+    torch.cuda.synchronize()
+    launches = qk.LAUNCHES
+    require(launches > 0, "width_sweep did not launch K1")
+    rows = [dict(s["run"].result(), lg=s["lg"], W=s["W"], docs=s["W"] * 32)
+            for s in st]
+    for line in width_sweep.table(rows):
+        print(f"phase 16 width_sweep ({card}): {line}")
+    rng = np.random.default_rng(17)
+    B, T = width_sweep.B, width_sweep.T
+    for s, r in zip(st, rows):
+        m, W = s["matrix"], s["W"]
+        sig = m.shape[0] - 1
+        ids = random_ids(torch, rng, 1, 8, T, 1, sig, DEVICE)[0]
+        got = qk.gather_and_count(m, ids, 1)
+        want, r["plain_ms"] = event_ms(
+            torch, lambda: qk.gather_and_count_reference(m, ids, 1))
+        require(torch.equal(got, want), f"width_sweep W={W}: K1 != plain")
+        del got, want
+        ids = random_ids(torch, rng, 1, B, T, 1, sig, DEVICE)[0]
+        r["ms"] = median_device_ms(
+            torch, lambda i: qk.gather_and_count(m, ids, 1), reps=10)
+        r["bound_ms"], r["bound_by"] = bound(
+            B * T * W * 4 + B * W * 32 * 4 + B * T * 4, B * T * W * 32)
+        r["plan"] = qk.launch_plan(m.device.index, B, T, 1, 1, W)
+        p = r["plan"]
+        print(f"phase 16 width_sweep K1 ({card}) W={W}: == plain at B=8 "
+              f"(plain {r['plain_ms']:.1f} ms); B={B} {r['ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"{r['gbps']:.1f} GB/s in the sweep; plan {p.n_slices} slices "
+              f"of {p.slice_w} words, cluster {p.cluster}, {p.stages} stages")
+        del ids
+    del st
+    return {"rows": rows, "launches": launches}
+
+
+def _phase_mega(torch, qk, dh, s, settings, card: str) -> dict:
+    """mega_serve_bench's sweep, one round, threshold 0 (so every query
+    ranks 100 documents), each config's results equal to search_batch's."""
+    from cobs_tpu_torch.experiments import mega_serve_bench as mb
+
+    configs = mb.parse_configs(MEGA_CONFIGS)
+    queries = mb.random_queries(MEGA_QUERIES, 1000)
+    qk.LAUNCHES = dh.LAUNCHES = 0
+    best = mb.sweep(s, settings, configs, queries, 1, 0.0, 100,
+                    log=lambda m: print(f"phase 16 mega_serve {m}"))
+    torch.cuda.synchronize()
+    launches = (qk.LAUNCHES, dh.LAUNCHES)
+    batches = sum(-(-min(B * mega, MEGA_QUERIES) // B)
+                  + -(-MEGA_QUERIES // B) for B, mega in configs)
+    require(min(launches) > 0, f"mega_serve launched {launches}")
+    require(launches[0] < batches, f"mega_serve: {launches[0]} K1 launches "
+                                   f"for {batches} batches")
+    for (B, mega), qps in sorted(best.items()):
+        print(mb.result_line(B, mega, 0.0, 100, qps))
+    want = pairs(s.search_batch(queries, 0.0, 100))
+    for B, mega in configs:
+        got = mb.rep(s, settings, B, mega, queries, 0.0, 100, keep=True)[2]
+        require(pairs(got) == want, f"mega_serve {B}:{mega}: results != "
+                                    "search_batch's")
+    print(f"phase 16 mega_serve ({card}): every config's {MEGA_QUERIES} "
+          f"rankings == search_batch's; K1 / hash launches {launches} for "
+          f"{batches} batches")
+    return {"qps": best, "launches": launches, "batches": batches}
+
+
+def _phase_serve_bench(torch, qk, dh, s, path: Path, card: str) -> dict:
+    """serve_bench on phase 9's file: direct, then SERVE_CLIENTS client
+    processes, threshold 0 (every response ranks 100 documents), every
+    served response equal to search_batch's."""
+    import argparse
+
+    from cobs_tpu_torch.experiments import serve_bench as sb
+
+    args = argparse.Namespace(
+        index=str(path), threshold=0.0, limit=100, batch=1024,
+        clients=SERVE_CLIENTS, queries=SERVE_QUERIES, kmers=1000,
+        warmup=256, linger_ms=5.0, streamed=False, pin_clients=False,
+        skip_direct=False, device=DEVICE)
+    qk.LAUNCHES = dh.LAUNCHES = 0
+    res = sb.run(args, search=s, keep=True)
+    torch.cuda.synchronize()
+    launches = (qk.LAUNCHES, dh.LAUNCHES)
+    require(min(launches) > 0, f"serve_bench launched {launches}")
+    queries = sb.random_queries(SERVE_QUERIES, 1000)
+    want = pairs(s.search_batch(queries, 0.0, 100))
+    require(res["responses"] == want,
+            "serve_bench: a served response != search_batch's")
+    print(f"phase 16 serve_bench ({card}): {SERVE_QUERIES} queries from "
+          f"{SERVE_CLIENTS} client processes, every response == "
+          f"search_batch's; served {res['served']:.1f} q/s against direct "
+          f"{res['direct']:.1f} (overhead {res['overhead_pct']:.1f} %), p50 "
+          f"{res['p50']} ms p99 {res['p99']} ms; K1 / hash launches "
+          f"{launches}")
+    res.pop("responses")
+    res["launches"] = launches
+    return res
+
+
+def _phase_score_batch(card: str) -> dict:
+    """score_batch_bench at its defaults (host only)."""
+    from cobs_tpu_torch.experiments import score_batch_bench
+
+    best = score_batch_bench.bench()
+    print(f"phase 16 score_batch_bench ({card} host): {best * 1e3:.2f} ms "
+          f"a batch of 64 x 1,000 terms over 10,000 documents")
+    return {"ms": best * 1e3}
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -3488,75 +3911,101 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        controls = pool.submit(redesign_bench.build_controls)
-        secs = _build.build()
-        secs.update(controls.result())
-    print(f"build of {len(secs)} sources in parallel: "
-          f"{time.perf_counter() - t0:.2f} s")
-    for name, sec in secs.items():
-        print(f"build {name}.cu: {sec:.2f} s")
-        for line in _build.build_logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                print("  ptxas: " + line.strip())
-        if name not in redesign_bench.CONTROLS:
-            _build.load(name)
+    with phase_clock("build"):
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            controls = pool.submit(redesign_bench.build_controls)
+            secs = _build.build()
+            secs.update(controls.result())
+        print(f"build of {len(secs)} sources in parallel: "
+              f"{time.perf_counter() - t0:.2f} s")
+        for name, sec in secs.items():
+            print(f"build {name}.cu: {sec:.2f} s")
+            for line in _build.build_logs.get(name, "").splitlines():
+                if "registers" in line or "spill" in line:
+                    print("  ptxas: " + line.strip())
+            if name not in redesign_bench.CONTROLS:
+                _build.load(name)
 
-    err = phase_mixed_shapes(torch, qk, np.random.default_rng(0))
-    phase_golden(torch, qk, dh, Search)
-    ref = phase_reference_scale(torch, qk, dh, engine, Search, settings,
-                                card)
+    with phase_clock(1):
+        err = phase_mixed_shapes(torch, qk, np.random.default_rng(0))
+    with phase_clock(2):
+        phase_golden(torch, qk, dh, Search)
+    with phase_clock(3):
+        ref = phase_reference_scale(torch, qk, dh, engine, Search, settings,
+                                    card)
     torch.cuda.empty_cache()
-    err = max(err, ref["err"], phase_wide_rows(torch, qk, dg, card))
+    with phase_clock(4):
+        err = max(err, ref["err"], phase_wide_rows(torch, qk, dg, card))
     torch.cuda.empty_cache()
-    hash5 = phase_hash_kernel(torch, dh, np.random.default_rng(5), card)
-    phase_gather_small(torch, dg, np.random.default_rng(6))
+    with phase_clock(5):
+        hash5 = phase_hash_kernel(torch, dh, np.random.default_rng(5), card)
+    with phase_clock(6):
+        phase_gather_small(torch, dg, np.random.default_rng(6))
 
     # K2's path, with its count at 0 just before it
-    dg.LAUNCHES = 0
-    sweep = bench.sweep(torch, plain=dg.dma_gather_rows_reference)
-    torch.cuda.synchronize()
-    k2_launches = dg.LAUNCHES
-    require(k2_launches > 0, "the bandwidth sweep did not launch K2")
-    for row in sweep:
-        print(f"phase 7 K2 bandwidth ({card}): " + bench.format_row(row))
-    k2 = sweep[0]  # W=384: the row width of phase 3
+    with phase_clock(7):
+        dg.LAUNCHES = 0
+        sweep = bench.sweep(torch, plain=dg.dma_gather_rows_reference)
+        torch.cuda.synchronize()
+        k2_launches = dg.LAUNCHES
+        require(k2_launches > 0, "the bandwidth sweep did not launch K2")
+        for row in sweep:
+            print(f"phase 7 K2 bandwidth ({card}): " + bench.format_row(row))
+        k2 = sweep[0]  # W=384: the row width of phase 3
 
     # K1's batch sweep, with its count at 0 just before it
-    qk.LAUNCHES = 0
-    k1_sweep = gc_bench.sweep(torch)
-    torch.cuda.synchronize()
-    require(qk.LAUNCHES > 0, "the batch sweep did not launch K1")
-    for row in k1_sweep:
-        print(f"phase 8 K1 batch sweep ({card}): " + gc_bench.format_row(row))
+    with phase_clock(8):
+        qk.LAUNCHES = 0
+        k1_sweep = gc_bench.sweep(torch)
+        torch.cuda.synchronize()
+        require(qk.LAUNCHES > 0, "the batch sweep did not launch K1")
+        for row in k1_sweep:
+            print(f"phase 8 K1 batch sweep ({card}): "
+                  + gc_bench.format_row(row))
     torch.cuda.empty_cache()
 
-    phase_streamed_golden(torch, native, Search, engine.StreamedIndex,
-                          settings)
-    streamed = phase_streamed(torch, qk, dh, engine, native, Search,
-                              settings, card)
+    with phase_clock(9):
+        phase_streamed_golden(torch, native, Search, engine.StreamedIndex,
+                              settings)
+        streamed = phase_streamed(torch, qk, dh, engine, native, Search,
+                                  settings, card)
     err = max(err, streamed["err"])
     torch.cuda.empty_cache()
 
-    phase_construct_edges(torch, cs, build_batch_matrix_device)
-    phase_construct_golden(torch, cs, cli_main)
-    con = phase_construct(torch, cs, qk, dh, card)
+    with phase_clock(10):
+        phase_construct_edges(torch, cs, build_batch_matrix_device)
+        phase_construct_golden(torch, cs, cli_main)
+        con = phase_construct(torch, cs, qk, dh, card)
     torch.cuda.empty_cache()
 
-    phase_serve_cli(QueryClient)
-    served = phase_serve(torch, qk, dh, engine, Search, QueryServer,
-                         QueryClient, settings, card)
+    with phase_clock(11):
+        phase_serve_cli(QueryClient)
+        served = phase_serve(torch, qk, dh, engine, Search, QueryServer,
+                             QueryClient, settings, card)
     torch.cuda.empty_cache()
-    mesh = phase_sharded(torch, qk, dh, engine, Search, QueryClient,
-                         settings, cli_main, card)
+    with phase_clock(12):
+        mesh = phase_sharded(torch, qk, dh, engine, Search, QueryClient,
+                             settings, cli_main, card)
     con_mesh = con.pop("sharded")
     cli = con.pop("cli")
     torch.cuda.empty_cache()
-    paper = phase_paper_scale(torch, qk, dh, cs, engine, Search, settings,
-                              card)
+    with phase_clock(14):
+        paper = phase_paper_scale(torch, qk, dh, cs, engine, Search,
+                                  settings, card)
     torch.cuda.empty_cache()
-    phase_soak(torch, qk, dh, cs, card)
+    with phase_clock(15):
+        phase_soak(torch, qk, dh, cs, card)
+    torch.cuda.empty_cache()
+    with phase_clock(16):
+        har = phase_harnesses(torch, qk, dh, cs, engine, Search, settings,
+                              card)
+    require(set(PHASE_SECONDS) == {"build", *range(1, 17)},
+            f"phases timed: {sorted(map(str, PHASE_SECONDS))}")
+    print("phase_seconds " + " ".join(
+        f"{k}={PHASE_SECONDS[k]:.1f}" for k in ["build", *range(1, 17)])
+        + f" total={time.perf_counter() - t_start:.1f}")
+    rc, hk = har["runcap"], har["runcap"]["k1"]
     pk = paper["kernels"]
 
     entries = {
@@ -3581,6 +4030,19 @@ def main() -> int:
             **{f"paper_{p}_{key}": pk[p]["k1"][key]
                for p in ("P=98", "P=1") for key in ("ms", "plain_ms",
                                                      "bound_ms")},
+            runcap_launches=rc["launches"][0], runcap_batches=rc["batches"],
+            **{f"runcap_{v}_group_{key}": hk[v][key]
+               for v in hk for key in ("ms", "bound_ms")},
+            runcap_capped_group_plain_ms=hk["capped"]["plain_ms"],
+            bench_torch_launches=har["bench"]["launches"],
+            bench_torch_ms_per_batch=har["bench"]["ms_per_batch"],
+            **{f"width_k1_{key}": {w["W"]: w[key]
+                                   for w in har["width"]["rows"]}
+               for key in ("ms", "plain_ms", "bound_ms")},
+            width_launches=har["width"]["launches"],
+            mega_launches=har["mega"]["launches"][0],
+            mega_batches=har["mega"]["batches"],
+            serve_bench_launches=har["serve"]["launches"][0],
             **ref["k1"]),
         "rows_from_queries": dict(
             launches=ref["launches"]["rows_from_queries"], max_abs_err=0,
@@ -3602,6 +4064,10 @@ def main() -> int:
             **{f"paper_{p}_{key}": pk[p]["hash"][key]
                for p in ("P=98", "P=1") for key in ("ms", "plain_ms",
                                                      "bound_ms")},
+            runcap_launches=rc["launches"][1], runcap_batches=rc["batches"],
+            mega_launches=har["mega"]["launches"][1],
+            mega_batches=har["mega"]["batches"],
+            serve_bench_launches=har["serve"]["launches"][1],
             **ref["hash"]),
         "dma_gather_rows": dict(
             launches=k2_launches, max_abs_err=0, ms=k2["ms"],
@@ -3616,7 +4082,8 @@ def main() -> int:
             paper_launches=paper["scatter_launches"],
             paper_ms=paper["scatter"]["ms"],
             paper_plain_ms=paper["scatter"]["plain_ms"],
-            paper_bound_ms=paper["scatter"]["bound_ms"], **con),
+            paper_bound_ms=paper["scatter"]["bound_ms"],
+            runcap_launches=rc["scatter_launches"], **con),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -31,6 +32,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: dict[tuple[str, Path], ctypes.CDLL] = {}
+#: one lock per library path: threads of one process that reach a kernel
+#: first together (the construction's page workers) build it once; the
+#: temporary file is per process, so processes do not collide either
+_path_locks: dict[Path, threading.Lock] = {}
+_path_locks_guard = threading.Lock()
 #: nvcc's output (with -Xptxas -v: registers, shared memory and spills
 #: per kernel) of each library built by this process
 build_logs: dict[str, str] = {}
@@ -55,24 +61,31 @@ def _so_path(name: str, csrc: Path = _CSRC) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
+def _path_lock(path: Path) -> threading.Lock:
+    with _path_locks_guard:
+        return _path_locks.setdefault(path, threading.Lock())
+
+
 def _compile(name: str, csrc: Path = _CSRC) -> float:
     """Compile `<csrc>/<name>.cu` unless its build exists; returns the
-    seconds nvcc took (0.0 when nothing was built)."""
+    seconds nvcc took (0.0 when nothing was built). Thread-safe."""
     so = _so_path(name, csrc)
-    if so.exists():
-        return 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(csrc / f"{name}.cu")],
-                          capture_output=True, text=True)
-    build_logs[name] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {name}.cu:\n{build_logs[name]}")
-    os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
-    return time.perf_counter() - t0
+    with _path_lock(so):
+        if so.exists():
+            return 0.0
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                               str(csrc / f"{name}.cu")],
+                              capture_output=True, text=True)
+        build_logs[name] = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed on {name}.cu:\n"
+                               f"{build_logs[name]}")
+        os.replace(tmp, so)  # atomic: another process sees all or none
+        return time.perf_counter() - t0
 
 
 def build(names=SOURCES, csrc: Path = _CSRC) -> dict[str, float]:

@@ -429,7 +429,9 @@ class Search:
         so the cap divides _MEGA_FULLRANK_BYTES by the sum of the
         indexes' slot widths. The scores are int32, 4 bytes a slot
         (cobs_tpu shrinks them to u16 for its slow link; the port does
-        not). Top-k groups hold only [K * B, k] and are never capped.
+        not). Top-k groups are not capped: their [K * B, slots] scores
+        live only until their top-k, which ranks them in bounded chunks
+        (engine.topk_slots), and [K * B, k] is held until the fetch.
         The one formula serves search_stream and QueryServer."""
         mega = self._mega_k()
         if mega > 1 and num_results == 0:

@@ -495,6 +495,45 @@ def test_failed_nvcc_build_raises(tmp_path, monkeypatch):
     assert not list((tmp_path / "build").glob("*.so"))
 
 
+def test_first_use_from_many_threads_builds_once(tmp_path, monkeypatch):
+    """Threads that reach a kernel first together (construction's page
+    workers on a fresh checkout) run nvcc once and all find the library;
+    they used to share one temporary file, and every thread but the first
+    failed to move it into place (FileNotFoundError)."""
+    import threading
+
+    from cobs_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "build_logs", {})
+    calls = tmp_path / "calls"
+    fake = tmp_path / "cuda" / "bin" / "nvcc"
+    fake.parent.mkdir(parents=True)
+    # writes its -o file after a pause, so the threads overlap
+    fake.write_text('#!/bin/sh\necho x >> "%s"\nsleep 0.3\n'
+                    'while [ "$1" != -o ]; do shift; done\n'
+                    'echo lib > "$2"\n' % calls)
+    fake.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    errors = []
+
+    def first_use():
+        try:
+            _build._compile("construct_scatter")
+        except Exception as e:  # noqa: BLE001  (collected, asserted below)
+            errors.append(e)
+
+    threads = [threading.Thread(target=first_use) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert errors == []
+    assert calls.read_text().count("x") == 1
+    assert _build._so_path("construct_scatter").read_text() == "lib\n"
+    assert not list((tmp_path / "build").glob("*.tmp"))
+
+
 def test_pack_plane_matches_cobs_tpu():
     from cobs_tpu.construct.device import _pack_plane
 

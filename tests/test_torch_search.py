@@ -197,9 +197,11 @@ def test_cmd_benchmark_scaling(capsys):
 
 
 def test_imports_and_answers_without_jax():
-    """Every module of the port, parallel/* and the paper-scale and soak
-    harnesses included, and the cobs_index_torch shim import with jax and
-    cobs_tpu blocked; the port builds an index from the golden corpus and
+    """Every module of the port, parallel/* and the ports of cobs_tpu's
+    harnesses included (paper_scale, server_soak, runcap_serve_bench,
+    serve_bench, mega_serve_bench, width_sweep, batch_sweep,
+    score_batch_bench), bench_torch.py and the cobs_index_torch shim
+    import with jax and cobs_tpu blocked; the port builds an index from the golden corpus and
     answers from it, on one device and sharded over a mesh, runs the
     subtools that read indexes and documents, and the two harnesses at a
     tiny size: the card's machine has no JAX."""
@@ -216,7 +218,11 @@ for m in pkgutil.walk_packages(cobs_tpu_torch.__path__, "cobs_tpu_torch."):
 assert {{"cobs_tpu_torch.parallel." + m for m in (
     "sharded", "distributed", "benchmark", "dryrun")}} <= set(sys.modules)
 assert {{"cobs_tpu_torch.experiments." + m for m in (
-    "paper_scale", "server_soak")}} <= set(sys.modules)
+    "paper_scale", "server_soak", "runcap_serve_bench", "serve_bench",
+    "mega_serve_bench", "width_sweep", "batch_sweep",
+    "score_batch_bench")}} <= set(sys.modules)
+import bench_torch
+assert bench_torch.reference_qps(1000, 1, 10_000) == 40_000.0
 from cobs_tpu_torch.experiments import paper_scale, server_soak
 from cobs_tpu_torch.cli.main import main
 from cobs_tpu_torch.ops import _build
