@@ -226,18 +226,20 @@ torch.cuda.synchronize():
    page_docs set, at least two values), uncapped (another page count)
    and plain, and 4,096 random queries of 1,000 terms served by each
    (B=1,024, three rounds, -t 0.8 -l 100, K1 and hash launches counted):
-   the three rank them alike, and 256 document queries (64 a tier, each
-   finding its document at all its terms) and 4 full rankings of every
-   document alike; the first 256 random queries, the document queries
-   and the full rankings equal streamed host scoring's (native hashing,
-   COBS_TPU_DEVICE_HASH=host); the hash kernel and K1 equal their plain
-   versions on the served group of capped (rows [4,096, 1,000, 1, 7])
-   and on 256 queries of the others; K1 timed at each layout's group
-   beside its bound; (b) bench_torch.py's measurement on the
-   reference-default matrix, after one batch's totals equal plain K1's;
-   (c) width_sweep, one round at W in {384, 1,536, 6,144, 24,576} (2^21
-   x 384 words of bytes each), then K1 equal to its plain version on 8
-   queries at each width and timed at B=64 beside its bound; (d)
+   the three rank them alike at -t 0 (top 100 of each), and 256 document
+   queries (64 a tier, each finding its document at all its terms, -t
+   0.8) and 4 full rankings of every document alike; the first 256
+   random queries, the document queries and the full rankings equal
+   streamed host scoring's (native hashing, COBS_TPU_DEVICE_HASH=host);
+   the hash kernel and K1 equal their plain versions on each layout's
+   first served group (as many batches of 1,024 as its top-k budget
+   packs: rows [4,096, 1,000, 1, P] for capped and uncapped, [3,072, ...,
+   40] for plain), K1 timed there beside its bound; (b) bench_torch.py's
+   measurement on the reference-default matrix, after one batch's totals
+   equal plain K1's; (c) width_sweep, one round at W in {384, 1,536,
+   6,144, 24,576} (2^21 x 384 words of bytes each), then K1 equal to its
+   plain version on 8 queries and on the 64 it is then timed on at each
+   width, beside its bound; (d)
    mega_serve_bench, one round of 64:1, 64:16 and 1024:16 over 4,096
    queries on phase 9's file written again from its seed (-t 0 -l 100),
    each config's rankings equal to search_batch's, fewer K1 launches
@@ -3636,9 +3638,12 @@ def _phase_runcap(torch, qk, dh, cs, engine, Search, settings, root: Path,
         for name, qps in best.items():
             print(rb.result_line(name, RUNCAP_BATCH, qps))
 
-        # rankings: the served queries, document queries of every tier,
-        # and a full ranking, alike in all three; held to host scoring
-        ranked = {n: pairs(rb.rep(s, queries, RUNCAP_BATCH, keep=True)[1])
+        # rankings: the served queries at -t 0 (at the harness's -t 0.8
+        # few random queries rank a document), document queries of every
+        # tier at -t 0.8, and a full ranking, alike in all three; held to
+        # host scoring
+        ranked = {n: pairs(s.search_stream(queries, 0.0, rb.LIMIT,
+                                           batch_size=RUNCAP_BATCH))
                   for n, s in searches.items()}
         dq, dq_docs = runcap_doc_queries(rb, root)
         dranked = {n: pairs(rb.rep(s, dq, RUNCAP_BATCH, keep=True)[1])
@@ -3660,7 +3665,7 @@ def _phase_runcap(torch, qk, dh, cs, engine, Search, settings, root: Path,
             require(isinstance(host.index_files[0], engine.StreamedIndex),
                     "runcap: host scoring is not streamed")
             host_q = pairs(host.search_batch(queries[:RUNCAP_CHECKED],
-                                             rb.THRESHOLD, rb.LIMIT))
+                                             0.0, rb.LIMIT))
             host_d = pairs(host.search_batch(dq, rb.THRESHOLD, rb.LIMIT))
             host_f = pairs(host.search_batch(dq[::RUNCAP_PER_TIER], 0.0, 0))
         finally:
@@ -3668,10 +3673,11 @@ def _phase_runcap(torch, qk, dh, cs, engine, Search, settings, root: Path,
         require(ranked["capped"][:RUNCAP_CHECKED] == host_q
                 and dranked["capped"] == host_d and full["capped"] == host_f,
                 "runcap: the card ranks differently from host scoring")
-        hits = sum(bool(r) for r in ranked["capped"])
+        require(all(len(r) == rb.LIMIT for r in ranked["capped"]),
+                f"runcap: a -t 0 ranking is not {rb.LIMIT} documents")
         print(f"phase 16 runcap ({card}): the three variants rank "
-              f"{len(queries)} random queries alike ({hits} with a hit at "
-              f"-t 0.8), {len(dq)} document queries ({RUNCAP_PER_TIER} a "
+              f"{len(queries)} random queries alike (-t 0, top "
+              f"{rb.LIMIT}), {len(dq)} document queries ({RUNCAP_PER_TIER} a "
               f"tier, each finding its document at all its terms) and "
               f"{len(full['capped'])} full rankings of {n_docs} lines; "
               f"the first {RUNCAP_CHECKED} random, all document queries "
@@ -3679,26 +3685,19 @@ def _phase_runcap(torch, qk, dh, cs, engine, Search, settings, root: Path,
               f"loads {load_s:.2f} s for three; K1 / hash launches "
               f"{launches} for {batches} batches")
 
-        # the kernels at this path's launch shape: one group of the
-        # served batches on each layout (exact against plain on capped's
-        # group and on a batch of RUNCAP_CHECKED of the others)
-        group = [queries[i:i + RUNCAP_BATCH]
-                 for i in range(0, RUNCAP_QUERIES, RUNCAP_BATCH)]
+        # the kernels at this path's launch shape: each layout's first
+        # served group (as many batches as its top-k budget lets
+        # search_stream pack), exact against their plain versions
+        batched = [queries[i:i + RUNCAP_BATCH]
+                   for i in range(0, RUNCAP_QUERIES, RUNCAP_BATCH)]
         k1 = {}
         for name, s in searches.items():
             ix = s.index_files[0]
-            cat, flagged = group_payload(engine, s, group)
+            mega_k = s._mega_k_capped(RUNCAP_BATCH, rb.LIMIT)
+            cat, flagged = group_payload(engine, s, batched[:mega_k])
             require(flagged == 0, f"runcap {name}: {flagged} flagged")
-            if name == "capped":
-                rows = group_kernels_exact(torch, qk, dh, engine, ix, cat,
-                                           "phase 16 runcap capped group")
-            else:
-                small, _ = group_payload(engine, s,
-                                         [queries[:RUNCAP_CHECKED]])
-                group_kernels_exact(torch, qk, dh, engine, ix, small,
-                                    f"phase 16 runcap {name}")
-                rows = dh.rows_from_queries(
-                    *device_hash_args(engine, ix, cat))
+            rows = group_kernels_exact(torch, qk, dh, engine, ix, cat,
+                                       f"phase 16 runcap {name} group")
             Bg, T, h, P = rows.shape
             W = ix.word_width
             unique = torch.unique(rows).numel()
@@ -3759,8 +3758,9 @@ def _phase_bench_torch(torch, qk, card: str) -> dict:
 
 def _phase_width(torch, qk, card: str) -> dict:
     """width_sweep at one round (K1's launches counted); then each
-    width's K1 equal to plain on a batch of 8 queries, and timed at B=64
-    beside its bound."""
+    width's K1 equal to plain on a batch of 8 queries and on the B=64 ids
+    it is then timed on (the planner cuts slices by B too), beside its
+    bound."""
     from cobs_tpu_torch.experiments import width_sweep
     from cobs_tpu_torch.experiments.dma_gather_bench import (
         median_device_ms,
@@ -3790,6 +3790,9 @@ def _phase_width(torch, qk, card: str) -> dict:
         require(torch.equal(got, want), f"width_sweep W={W}: K1 != plain")
         del got, want
         ids = random_ids(torch, rng, 1, B, T, 1, sig, DEVICE)[0]
+        require(torch.equal(qk.gather_and_count(m, ids, 1),
+                            qk.gather_and_count_reference(m, ids, 1)),
+                f"width_sweep W={W}: K1 != plain at B={B}")
         r["ms"] = median_device_ms(
             torch, lambda i: qk.gather_and_count(m, ids, 1), reps=10)
         r["bound_ms"], r["bound_by"] = bound(
@@ -3797,7 +3800,8 @@ def _phase_width(torch, qk, card: str) -> dict:
         r["plan"] = qk.launch_plan(m.device.index, B, T, 1, 1, W)
         p = r["plan"]
         print(f"phase 16 width_sweep K1 ({card}) W={W}: == plain at B=8 "
-              f"(plain {r['plain_ms']:.1f} ms); B={B} {r['ms']:.4f} ms, "
+              f"(plain {r['plain_ms']:.1f} ms) and on the timed B={B} ids; "
+              f"B={B} {r['ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
               f"{r['gbps']:.1f} GB/s in the sweep; plan {p.n_slices} slices "
               f"of {p.slice_w} words, cluster {p.cluster}, {p.stages} stages")

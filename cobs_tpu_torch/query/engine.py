@@ -881,11 +881,6 @@ def _doc_valid_mask(lay: DocLayout, n_files: int) -> np.ndarray:
 
 
 _SLOT_MASK = (1 << 32) - 1
-#: bound on one int64 key tensor of topk_slots (bytes): rows beyond it
-#: are ranked in chunks. A multi-batch group's key is K * B rows of every
-#: slot (16 x 1,024 queries x 163,840 slots is 21.5 GB), and its
-#: temporaries, several times that, once ran the card out of memory.
-_TOPK_CHUNK_BYTES = 1 << 30
 
 
 def topk_slots(scores: torch.Tensor, valid_mask: torch.Tensor,
@@ -896,19 +891,15 @@ def topk_slots(scores: torch.Tensor, valid_mask: torch.Tensor,
 
     torch.topk keeps no tie order, so it ranks the key
     (score + 1) << 32 | (2^32 - 1 - slot), unique per slot, which orders
-    exactly as lax.top_k's prefer-lower-index rule in cobs_tpu. Rows go
-    in chunks of at most _TOPK_CHUNK_BYTES of key."""
+    exactly as lax.top_k's prefer-lower-index rule in cobs_tpu. The key
+    is made in place: at its peak the call holds 16 bytes a slot (the
+    scores, their masked int32 copy, the int64 key), the figure
+    search._mega_k_capped budgets top-k groups by."""
     if scores.shape[1] > _SLOT_MASK:
         raise ValueError("too many score slots for the int64 top-k key")
-    rows = max(1, _TOPK_CHUNK_BYTES // (8 * scores.shape[1]))
-    if scores.shape[0] > rows:
-        parts = [topk_slots(scores[i:i + rows], valid_mask, k)
-                 for i in range(0, scores.shape[0], rows)]
-        return (torch.cat([v for v, _ in parts]),
-                torch.cat([s for _, s in parts]))
-    masked = torch.where(valid_mask, scores, -1).long()
+    key = torch.where(valid_mask, scores, -1).long()
     slot = torch.arange(scores.shape[1], device=scores.device)
-    key = ((masked + 1) << 32) | (_SLOT_MASK - slot)
+    key.add_(1).bitwise_left_shift_(32).bitwise_or_(_SLOT_MASK - slot)
     top = torch.topk(key, k, dim=1).values
     return (top >> 32) - 1, _SLOT_MASK - (top & _SLOT_MASK)
 

@@ -72,6 +72,11 @@ _DEPTH = 2
 #: until it is fetched ([K * B, slots] int32; search_stream keeps _DEPTH
 #: groups and the next one in flight)
 _MEGA_FULLRANK_BYTES = 256 << 20
+#: device bytes one top-k multi-batch group may hold at its peak: the
+#: [K * B, slots] int32 scores and engine.topk_slots' int32 and int64
+#: copies of them, 16 bytes a slot (16 x 1,024 queries over 163,840 slots
+#: once asked the card for more than its 80 GB)
+_MEGA_TOPK_BYTES = 8 << 30
 
 
 def _open_index(path, device, streamed=None):
@@ -424,21 +429,22 @@ class Search:
         return max(1, int(settings.mega_batches))
 
     def _mega_k_capped(self, batch_size: int, num_results: int) -> int:
-        """_mega_k with the full-ranking device budget: a full-ranking
-        group holds [K * B, slots] scores per index until it is fetched,
-        so the cap divides _MEGA_FULLRANK_BYTES by the sum of the
-        indexes' slot widths. The scores are int32, 4 bytes a slot
-        (cobs_tpu shrinks them to u16 for its slow link; the port does
-        not). Top-k groups are not capped: their [K * B, slots] scores
-        live only until their top-k, which ranks them in bounded chunks
-        (engine.topk_slots), and [K * B, k] is held until the fetch.
-        The one formula serves search_stream and QueryServer."""
+        """_mega_k with a device budget per group, over the sum of the
+        indexes' slot widths. A full-ranking group holds [K * B, slots]
+        int32 scores, 4 bytes a slot, until it is fetched:
+        _MEGA_FULLRANK_BYTES (cobs_tpu shrinks them to u16 for its slow
+        link; the port does not). A top-k group holds them only until its
+        top-k, but engine.topk_slots adds its key: 16 bytes a slot at the
+        peak, _MEGA_TOPK_BYTES. The one formula serves search_stream and
+        QueryServer."""
         mega = self._mega_k()
-        if mega > 1 and num_results == 0:
+        if mega > 1:
             slots = sum(ix.word_width * 32 * ix.num_pages
                         for ix in self.index_files)
-            mega = max(1, min(mega, _MEGA_FULLRANK_BYTES
-                              // max(1, slots * 4 * batch_size)))
+            budget, per_slot = ((_MEGA_FULLRANK_BYTES, 4) if num_results == 0
+                                else (_MEGA_TOPK_BYTES, 16))
+            mega = max(1, min(mega, budget
+                              // max(1, slots * per_slot * batch_size)))
         return mega
 
     def _dispatch_group_async(self, hashed_group, num_results) -> list:

@@ -240,27 +240,21 @@ def test_topk_keeps_reference_tie_order(rng):
         np.testing.assert_array_equal(vals[b].numpy(), masked[b, order])
 
 
-def test_topk_slots_ranks_in_bounded_chunks(rng, monkeypatch):
-    """The top-k's int64 key is made and ranked a chunk of rows at a
-    time (at most _TOPK_CHUNK_BYTES), with the same result: a group of
-    16 x 1,024 queries over 163,840 slots once asked the card for a
-    20 GiB key at once and ran out of memory."""
-    scores = torch.from_numpy(
-        rng.integers(0, 4, size=(64, 4096)).astype(np.int32))
-    mask = torch.from_numpy(rng.random(4096) < 0.9)
-    want = teng.topk_slots(scores, mask, 50)
-    seen = []
-    real = torch.topk
-
-    def topk(x, k, dim):
-        seen.append(x.numel() * x.element_size())
-        return real(x, k, dim=dim)
-
-    monkeypatch.setattr(torch, "topk", topk)
-    monkeypatch.setattr(teng, "_TOPK_CHUNK_BYTES", 1 << 17, raising=False)
-    got = teng.topk_slots(scores, mask, 50)
-    assert max(seen) <= 1 << 17 and len(seen) == 64 * 4096 * 8 >> 17
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+def test_topk_slots_keys_in_place_on_its_own_copy(rng):
+    """topk_slots builds its int64 key in place on its own masked copy:
+    the caller's scores (a group's K1 output) are left as they were, and
+    scores up to 2^30 rank in (score desc, slot asc) order."""
+    scores = rng.integers(0, 4, size=(8, 1000)).astype(np.int32)
+    scores[:, ::97] = 1 << 30
+    mask = rng.random(1000) < 0.9
+    t = torch.from_numpy(scores.copy())
+    vals, slots = teng.topk_slots(t, torch.from_numpy(mask), 30)
+    assert torch.equal(t, torch.from_numpy(scores))
+    masked = np.where(mask, scores, -1).astype(np.int64)
+    for b in range(8):
+        order = np.lexsort((np.arange(1000), -masked[b]))[:30]
+        np.testing.assert_array_equal(slots[b].numpy(), order)
+        np.testing.assert_array_equal(vals[b].numpy(), masked[b, order])
 
 
 def test_from_arrays_takes_numpy_and_torch(rng):

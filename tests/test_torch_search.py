@@ -428,8 +428,8 @@ def test_dispatch_group_matches_per_batch_and_cobs_tpu(
 
 def test_mega_k_capped_binds_at_the_4_byte_budget(monkeypatch):
     """Full-ranking groups hold [K * B, slots] int32 scores: the cap is
-    256 MB // (slots * 4 * B), never binding top-k; 1 for a streamed
-    index or mega_batches = 1."""
+    256 MB // (slots * 4 * B); top-k's 16-byte budget does not bind at
+    these shapes; 1 for a streamed index or mega_batches = 1."""
     from cobs_tpu_torch import DeviceIndex
     from cobs_tpu_torch.query import search as search_mod
 
@@ -459,6 +459,37 @@ def test_mega_k_capped_binds_at_the_4_byte_budget(monkeypatch):
     monkeypatch.setattr(settings, "mega_batches", 16)
     streamed = Search(str(GOLDEN["classic"]), device="cpu", streamed=True)
     assert streamed._mega_k_capped(64, 5) == 1
+
+
+def test_mega_k_capped_bounds_topk_groups_by_16_bytes_a_slot():
+    """A top-k group holds its int32 scores and engine.topk_slots' key,
+    16 bytes a slot at the peak: the cap is 8 GiB // (slots * 16 * B).
+    A group of 16 x 1,024 queries over the plain skewed layout's 163,840
+    slots (40 pages of 512 B rows) once ran the card out of memory; it
+    now goes 3 batches a group. Held at runcap's three layouts and the
+    paper-scale serve's shape (B=512 over 102,400 slots, mega 8)."""
+    from cobs_tpu_torch import DeviceIndex
+    from cobs_tpu_torch.query import search as search_mod
+
+    def index(words, pages=1):
+        m = np.zeros((pages * 2 + 1, words), dtype=np.uint32)
+        return DeviceIndex.from_arrays(
+            m, np.arange(pages) * 2, [2] * pages, words, term_size=31,
+            canonicalize=1, num_hashes=1, page_size=words * 4,
+            file_names=["d"], device="cpu")
+
+    assert search_mod._MEGA_TOPK_BYTES == 8 << 30
+    budget = search_mod._MEGA_TOPK_BYTES
+    for words, pages, want in ((128, 7, 16), (512, 4, 8), (128, 40, 3)):
+        s = Search(index(words, pages))
+        k = s._mega_k_capped(1024, 100)
+        assert k == want
+        assert k * 1024 * words * 32 * pages * 16 <= budget
+        assert (k + 1) * 1024 * words * 32 * pages * 16 > budget \
+            or k == settings.mega_batches
+    assert Search(index(3200))._mega_k_capped(512, 100) == 10
+    # one batch goes alone even over the budget
+    assert Search(index(1 << 16))._mega_k_capped(1024, 1) == 1
 
 
 @pytest.mark.parametrize("which", ["single", "federation"])
