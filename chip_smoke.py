@@ -250,7 +250,9 @@ torch.cuda.synchronize():
 Prints the card's name and power limit, the build times, the times, the
 wall seconds of each phase (`phase_seconds`), then a JSON line of the
 kernels and, last, the device JSON line. Any failure
-raises and exits non-zero; so does a machine without a CUDA card.
+raises and exits non-zero; so does a machine without a CUDA card, and a
+child process still running before those two lines (one left by a
+failure is killed before the script exits).
 """
 
 import concurrent.futures
@@ -258,6 +260,7 @@ import contextlib
 import json
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -293,6 +296,37 @@ SCALAR_OPS_PER_S = 67e12
 def require(cond, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def live_children() -> list[int]:
+    """The pids of this process's child processes that have not exited
+    (/proc; a zombie has exited)."""
+    me, out = os.getpid(), []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        # the state and the parent's pid follow the name's ")"
+        state, ppid = stat.rsplit(")", 1)[1].split()[:2]
+        if int(ppid) == me and state != "Z":
+            out.append(int(d))
+    return out
+
+
+def stop_children() -> list[int]:
+    """Kill and reap every child process still running; their pids."""
+    pids = live_children()
+    for pid in pids:
+        with contextlib.suppress(OSError):
+            os.kill(pid, signal.SIGKILL)
+    for pid in pids:
+        with contextlib.suppress(OSError):
+            os.waitpid(pid, 0)
+    return pids
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -4089,6 +4123,8 @@ def main() -> int:
             paper_bound_ms=paper["scatter"]["bound_ms"],
             runcap_launches=rc["scatter_launches"], **con),
     }
+    stray = live_children()
+    require(not stray, f"child processes still running: {stray}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], **entries[name]}
@@ -4100,4 +4136,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        if stop_children():   # only after a failure: main checks for them
+            print("chip_smoke: killed child processes left running",
+                  file=sys.stderr)
+    sys.exit(rc)

@@ -41,6 +41,7 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 from pathlib import Path
 
 from cobs_tpu_torch.experiments.paper_scale import random_queries as _draw
@@ -130,9 +131,60 @@ def drive_served(search, queries, threshold, limit, batch, clients,
     [(doc, score), ...] in query order, else None) of `clients` client
     processes each pipelining its share (queries[i::clients]) to a
     QueryServer on a Unix socket, after one warm-up client. Prints the
-    DIAG line."""
+    DIAG line. Every process it starts has ended when it returns or
+    raises: the clients, the forkserver and the resource tracker, which
+    would otherwise outlive this process by the time they take to exit."""
+    import gc
     import multiprocessing as mp
+    from multiprocessing import forkserver, resource_tracker
 
+    ctx = mp.get_context("forkserver")
+    # the forkserver imports this module once (it imports torch), so the
+    # clients start fast (by name: run as __main__, the module is not
+    # preloaded as "__main__")
+    ctx.set_forkserver_preload(["cobs_tpu_torch.experiments.serve_bench"])
+    started = []
+    try:
+        return _drive_served(ctx, started, search, queries, threshold,
+                             limit, batch, clients, linger_ms, warm,
+                             pin_clients, keep)
+    except BaseException as e:
+        # the failed frames hold the queue and the events
+        traceback.clear_frames(e.__traceback__)
+        raise
+    finally:
+        for pr in started:
+            if pr.exitcode is None:
+                pr.kill()
+            pr.join()
+        started.clear()
+        forkserver._forkserver._stop()
+        # the queue's and events' semaphores are unregistered before the
+        # tracker stops, or a later unregister would start it anew
+        gc.collect()
+        resource_tracker._resource_tracker._stop()
+
+
+def _start_clients(ctx, started, sock, out_q, shares, pin, want):
+    """(event, processes): client processes for `shares`, each appended
+    to `started`, connected and waiting on the event. (Not a closure: a
+    failed call's frames, cleared, keep their function and so its
+    closure, which would hold the queue.)"""
+    go = ctx.Event()
+    procs = [ctx.Process(target=_client_proc,
+                         args=(sock, qs, out_q, go, pin, want, i))
+             for i, qs in enumerate(shares)]
+    for pr in procs:
+        pr.start()
+        started.append(pr)
+    _collect(out_q, procs, len(procs))   # every client ready
+    return go, procs
+
+
+def _drive_served(ctx, started, search, queries, threshold, limit, batch,
+                  clients, linger_ms, warm, pin_clients, keep):
+    """drive_served's measurement; each client process it starts is
+    appended to `started`."""
     from cobs_tpu_torch.query.server import QueryServer
 
     si = os.environ.get("BENCH_SWITCHINTERVAL")
@@ -141,35 +193,18 @@ def drive_served(search, queries, threshold, limit, batch, clients,
                       num_results=limit, batch_size=batch,
                       linger_ms=linger_ms)
     per_client = [queries[i::clients] for i in range(clients)]
-    ctx = mp.get_context("forkserver")
-    # the forkserver imports this module once (it imports torch), so the
-    # clients start fast (by name: run as __main__, the module is not
-    # preloaded as "__main__")
-    ctx.set_forkserver_preload(["cobs_tpu_torch.experiments.serve_bench"])
     out_q = ctx.Queue()
-
-    def start(shares, pin, want):
-        """Client processes for `shares`, connected and waiting on the
-        returned event."""
-        go = ctx.Event()
-        procs = [ctx.Process(target=_client_proc,
-                             args=(sock, qs, out_q, go, pin, want, i))
-                 for i, qs in enumerate(shares)]
-        for pr in procs:
-            pr.start()
-        _collect(out_q, procs, len(procs))   # every client ready
-        return go, procs
-
     with srv:
         if si:
             sys.setswitchinterval(float(si))
-        go, procs = start([warm], None, False)
+        go, procs = _start_clients(ctx, started, sock, out_q, [warm], None,
+                                   False)
         go.set()
         _collect(out_q, procs, 1)
         procs[0].join()
         ncpu = os.cpu_count() or 4
-        go, procs = start(per_client, ncpu - 1 if pin_clients else None,
-                          keep)
+        go, procs = _start_clients(ctx, started, sock, out_q, per_client,
+                                   ncpu - 1 if pin_clients else None, keep)
         t0 = time.perf_counter()
         go.set()
         got = _collect(out_q, procs, len(procs))

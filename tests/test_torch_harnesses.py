@@ -334,6 +334,36 @@ def test_serve_bench_lines(capsys):
     assert sum(line.startswith("DIAG") for line in out) == 3
 
 
+@pytest.mark.parametrize("fail", [False, True])
+def test_serve_bench_leaves_no_process_running(monkeypatch, fail):
+    """drive_served ends the client processes, the forkserver and the
+    resource tracker that it starts, also when it fails with a client
+    connected and waiting."""
+    import gc
+
+    import chip_smoke
+
+    before = set(chip_smoke.live_children())
+    if fail:
+        real = serve_bench._collect
+
+        def collect(out_q, procs, n, seconds=600.0):
+            real(out_q, procs, n, seconds)
+            raise RuntimeError("the parent failed")
+
+        monkeypatch.setattr(serve_bench, "_collect", collect)
+    s = Search(str(GOLDEN), device="cpu")
+    queries = serve_bench.random_queries(8, 40)
+    with quiet(), contextlib.ExitStack() as stack:
+        if fail:
+            stack.enter_context(pytest.raises(RuntimeError,
+                                              match="the parent failed"))
+        serve_bench.drive_served(s, queries, 0.0, 5, 8, 2, 1.0,
+                                 queries[:4])
+    gc.collect()
+    assert set(chip_smoke.live_children()) <= before
+
+
 def test_serve_bench_served_equals_search_batch():
     s = Search(str(GOLDEN), device="cpu")
     queries = serve_bench.random_queries(24, 40)
