@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the cobs_tpu_torch query, construction and multi-device
-paths on one CUDA card.
+paths on one CUDA card, phase 12's shards on four cards when four are
+visible.
 
     python3 chip_smoke.py
 
@@ -112,14 +113,17 @@ torch.cuda.synchronize():
    Prints served q/s beside `search_stream`'s on the same queries,
    latency p50/p99, batches, groups, `Timer` phases, launches per batch,
    the card's busy share while serving and the reload's seconds;
-12. the document-sharded index (parallel/sharded.py) as four shards of
-   the one card (`make_mesh(..., [cuda:0] * 4)`: correctness and
-   per-shard cost, not scaling across cards). (a) Phase 3's matrix and
+12. the document-sharded index (parallel/sharded.py) as four shards, one
+   a card when four cards are visible (`make_mesh(..., [cuda:0, cuda:1,
+   cuda:2, cuda:3])`), else four shards of the one card (`[cuda:0] * 4`);
+   the phase prints which (`phase 12 mesh: 4 distinct cards` or `1 card x
+   4 shards`), and every check below holds on either. (a) Phase 3's matrix and
    queries on a (1, 4) mesh (word_width 512, four 128-word shards) and
    on a (2, 2) one: all 1,024 queries in batches of 64 through
    `search_batch` and `search_stream` (one group), top 100 and full
    ranking, each ranking equal to the single-device `Search`'s, with one
-   launch of K1 and of the hash kernel per cell per batch or group; on
+   launch of K1 and of the hash kernel per cell per batch or group, on
+   every card of the mesh (the wrappers' `LAUNCHES_ON`); on
    (2, 2), 4 queries of 70,000 bp through the sequence split (K1 per
    cell, no hash launch), full ranking and top 100. (b) K1 and the hash
    kernel against their plain versions at one cell's shapes (W=128), and
@@ -127,27 +131,36 @@ torch.cuda.synchronize():
    other shape the main path gives them: the last cell's share of a
    batch and of a search_stream group on each mesh (B=64 and 1,024 at
    W=128; B=32 and 512 at W=256), and K1 on the sequence split's term
-   slice of a (2, 2) cell (B=4, about 35,000 terms, W=256). (c) Phase 9's file
+   slice of a (2, 2) cell (B=4, about 35,000 terms, W=256), these on
+   the last cell's card (cuda:3 on four cards). (c) Phase 9's file
    written again from its seed and streamed into the 4 shards from its
    mmap: rankings equal the held index's. (d) In phase 10, before its
    corpus is deleted: the classic build over 4 docs shards
-   (settings.construct_mesh), byte-identical to phase 10's file, and the
-   scatter on a shard's words with foreign updates below and past its
-   documents through the binned plan, equal to its plain version. (e)
-   Two processes (gloo, file store), 2 shards each on the card: each
+   (settings.construct_mesh), byte-identical to phase 10's file, with
+   the scatter launched on every card of the mesh, and the scatter on
+   shards 0 and 1's words, each on its shard's card, with foreign
+   updates below and past its documents through the binned plan, equal
+   to its plain version; with more than one card visible, also `cobs
+   classic-construct` with no mesh set (launched on every card) and the
+   build on cuda:0 alone, both byte-identical to phase 10's file. (e)
+   Two processes (gloo, file store), 2 shards each (cards 2r and 2r + 1
+   when four are visible, else cuda:0 twice): each
    streams only its own shards of phase 9's file and scores 256 queries
    (one exchange per batch), equal to the single-device rankings; then
    `parallel.distributed.construct` and `open_federated` over a
    20-document corpus, one device and the global mesh, equal to one
-   build; a failing child fails the phase. (f) `query --mesh 1` and
-   `serve --mesh 1` give the reference's lines; --mesh beyond the cards
-   exits non-zero. (g) `benchmark_scaling` over 1, 2 and 4 shards of the
-   one card at cobs_tpu's defaults but 1,000 batches per shard count,
-   run twice, with the spread of the two runs. (h) First of all, the
-   quick-check entry points: `parallel.dryrun.entry()`'s step against
-   K1's plain version, and `dryrun_multichip(4, [cuda:0] * 4)` (the
-   scatter and K1 on 8-word shards after the transpose, checked against
-   numpy, and the serving surface over a (2, 2) mesh);
+   build; a failing child fails the phase. (f) `query --mesh N` and
+   `serve --mesh N` (N the distinct cards: 4 or 1) give the reference's
+   lines; --mesh beyond the cards exits non-zero. (g)
+   `benchmark_scaling` over 1, 2 and 4 shards of the mesh's devices at
+   cobs_tpu's defaults but 1,000 batches per shard count, run twice,
+   with the spread of the two runs. (h) First of all, the quick-check
+   entry points: `parallel.dryrun.entry()`'s step against K1's plain
+   version, and `dryrun_multichip(4, devices)` (the scatter and K1 on
+   8-word shards after the transpose, checked against numpy, and the
+   serving surface over a (2, 2) mesh). The kernels line gives, for K1,
+   the hash kernel and the scatter, `sharded_cards`: the distinct cards
+   their sharded launches ran on;
 13. the rest of the CLI and the cobs_index_torch shim, inside phase 10
    before its corpus is deleted, on its 1,000 documents and the classic
    and compact indexes built there on the card; the CLI runs as
@@ -182,9 +195,10 @@ torch.cuda.synchronize():
    12,544 B), in a fresh process; prints each step's seconds,
    updates/s, the scatter launches, the page sub-indices written and
    combined, and that process's RSS as the pages are written (sampled
-   every 0.2 s): from a quarter of the pages written to the end of the
-   construction its peak must grow by less than half the matrix bytes
-   of the remaining pages (out of core); then
+   every 0.2 s): from its fixed buffers in place (a quarter of the
+   pages written, or one page a worker where that is later; build_rss)
+   to the end of the construction its peak must grow by less than half
+   the matrix bytes of the remaining pages (out of core); then
    the first subdirectory (1,000 documents, one page) at a --memory that
    cuts the page into four classic sub-indices, combined, and at 256MiB
    (one), byte-identical files; (c) `verify`:
@@ -247,7 +261,7 @@ torch.cuda.synchronize():
    from 4 client processes (B=1,024, -t 0 -l 100), every served response
    equal to search_batch's; (f) score_batch_bench at its defaults.
 
-Prints the card's name and power limit, the build times, the times, the
+Prints each card's name and power limit, the build times, the times, the
 wall seconds of each phase (`phase_seconds`), then a JSON line of the
 kernels and, last, the device JSON line. Any failure
 raises and exits non-zero; so does a machine without a CUDA card, and a
@@ -268,6 +282,15 @@ import time
 from pathlib import Path
 
 import numpy as np
+
+from cobs_tpu_torch.experiments.common import (
+    acgt_queries,
+    pairs,
+    read_fasta_sequence,
+    same_ranking,
+    sync_all,
+    write_fasta_corpus,
+)
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN_DIR = ROOT / "tests" / "data" / "golden"
@@ -350,16 +373,6 @@ def random_matrix(torch, rows: int, words: int, seed: int):
 
 def max_err(got, want) -> int:
     return int((got.long() - want.long()).abs().max().item())
-
-
-def acgt_queries(rng, n: int, length: int) -> list[str]:
-    acgt = np.frombuffer(b"ACGT", np.uint8)
-    return [acgt[rng.integers(0, 4, length)].tobytes().decode()
-            for _ in range(n)]
-
-
-def pairs(results) -> list:
-    return [[(r.doc_name, r.score) for r in rl] for rl in results]
 
 
 #: wall seconds per phase ("build" = the kernels' build), printed on the
@@ -892,14 +905,6 @@ def read_through(path: Path) -> None:
             pass
 
 
-def same_ranking(a, b) -> bool:
-    """Ranked result lists equal, documents and scores, in order."""
-    return len(a) == len(b) and all(
-        np.array_equal(x._gidx, y._gidx) and np.array_equal(x._scores,
-                                                             y._scores)
-        for x, y in zip(a, b))
-
-
 def streamed_timer_line(timer, n: int) -> str:
     return " ".join(f"{p}={timer.get(p) / n * 1e3:.3f}ms"
                     for p in ("hashes", "io", "and rows", "add rows",
@@ -1151,34 +1156,6 @@ CONSTRUCT_LENGTHS = (250_000, 1_000_000)
 CONSTRUCT_QUERIES, CONSTRUCT_QUERY_LEN = 64, 1030
 
 
-def write_fasta_corpus(root: Path, n_docs: int, lo: int, hi: int,
-                       seed: int) -> list[int]:
-    """n_docs FASTA files of random ACGT from `seed` under root, 80
-    letters a line, lengths spread evenly over [lo, hi] in a shuffled
-    order. Returns the lengths by document number."""
-    rng = np.random.default_rng(seed)
-    lengths = np.linspace(lo, hi, n_docs).astype(np.int64)
-    rng.shuffle(lengths)
-    acgt = np.frombuffer(b"ACGT", np.uint8)
-    root.mkdir(parents=True, exist_ok=True)
-    for i, n in enumerate(lengths.tolist()):
-        seq = acgt[rng.integers(0, 4, n, dtype=np.uint8)]
-        full = n // 80 * 80
-        lines = np.empty((n // 80, 81), dtype=np.uint8)
-        lines[:, :80] = seq[:full].reshape(-1, 80)
-        lines[:, 80] = ord("\n")
-        with open(root / f"doc{i:04d}.fasta", "wb") as f:
-            f.write(b">doc%d\n" % i)
-            f.write(lines.tobytes())
-            if n > full:
-                f.write(seq[full:].tobytes() + b"\n")
-    return lengths.tolist()
-
-
-def read_fasta_sequence(path: Path) -> bytes:
-    return b"".join(path.read_bytes().split(b"\n")[1:])
-
-
 def phase_construct_edges(torch, cs, device_build) -> None:
     """The bit scatter kernel against its plain version on the card, bit
     for bit and again on a second launch, on word-major words [Wc, R1]:
@@ -1252,9 +1229,10 @@ def phase_construct_edges(torch, cs, device_build) -> None:
                              device=DEVICE)
         check(R1, -(-D // 32), rows, docs, f"R1={R1} D={D}")
     # the device build through many upload chunks against the CPU build
+    from cobs_tpu_torch.ingest.document_list import DocumentList
+
     docs_dir = ROOT / "bench_data" / "construct_edges"
     write_fasta_corpus(docs_dir, 37, 200, 3000, seed=21)
-    from cobs_tpu_torch.ingest.document_list import DocumentList
 
     entries = DocumentList(docs_dir).list()
     sig, row_size = 10_007, -(-len(entries) // 8)
@@ -2224,7 +2202,8 @@ def _phase_serve(torch, qk, dh, engine, Search, QueryServer, QueryClient,
     return {"launches": on["launches"], "batches": on["stats"]["batches"]}
 
 
-#: phase 12's shards, all on the one card
+#: phase 12's shards: one card each when that many are visible, else
+#: all on cuda:0
 SHARDS = 4
 #: batches per shard count in each of phase 12's two benchmark_scaling
 #: runs: about a second of scoring at 4 shards (cobs_tpu's default of 10
@@ -2232,17 +2211,42 @@ SHARDS = 4
 SCALING_ITERS = 1000
 
 
-def cuda0(torch, n: int) -> list:
+def mesh_cards(torch, n: int) -> list:
+    """n devices for a mesh: cards 0 .. n - 1 when n cards are visible,
+    else cuda:0 n times (shards that share the one card)."""
+    if torch.cuda.device_count() >= n:
+        return [torch.device("cuda", i) for i in range(n)]
     return [torch.device("cuda", 0)] * n
+
+
+def cards_line(devices) -> str:
+    """How a mesh's devices sit on cards: "4 distinct cards" or "1 card x
+    4 shards"."""
+    distinct = len(set(devices))
+    if distinct == len(devices):
+        return f"{distinct} distinct cards"
+    return (f"{distinct} {'card' if distinct == 1 else 'cards'} x "
+            f"{len(devices) // distinct} shards")
+
+
+def announce_mesh(torch) -> list:
+    """Phase 12's SHARDS devices, printed as the phase's mesh line."""
+    cards = mesh_cards(torch, SHARDS)
+    print(f"phase 12 mesh: {cards_line(cards)}")
+    return cards
 
 
 def phase_construct_sharded(torch, cs, card: str, root: Path, k: int,
                             h: int, single_wall: float) -> dict:
     """Phase 12 (d), on phase 10's corpus before it is deleted: the
-    classic build with settings.construct_mesh = 4 docs shards on the
-    card, byte-identical to phase 10's single-device file; then the
-    scatter on one shard's words, with foreign updates below and past
-    its documents, through the binned plan, against its plain version."""
+    classic build with settings.construct_mesh = 4 docs shards (one a
+    card when four are visible), byte-identical to phase 10's file; then
+    the scatter on shards 0 and 1's words, each on its shard's card, with
+    foreign updates below and past its documents, through the binned
+    plan, against its plain version. With more than one card visible,
+    also `cobs classic-construct` with no mesh set (the default shards
+    over every card) and the build on one card (construct_mesh of
+    cuda:0), both byte-identical to phase 10's file."""
     import cobs_tpu_torch as ct
     from cobs_tpu_torch.construct.bitmatrix import doc_row_indices
     from cobs_tpu_torch.construct.device import UPDATE_CHUNK
@@ -2254,23 +2258,30 @@ def phase_construct_sharded(torch, cs, card: str, root: Path, k: int,
     from cobs_tpu_torch.parallel.sharded import make_mesh
 
     docs = root / "docs"
-    mesh = make_mesh(1, SHARDS, cuda0(torch, SHARDS))
+    cards = mesh_cards(torch, SHARDS)
+    mesh = make_mesh(1, SHARDS, cards)
     old = ct.settings.construct_mesh
     ct.settings.construct_mesh = mesh
     try:
         cs.LAUNCHES = 0
+        cs.LAUNCHES_ON.clear()
         wall, stages = construct_timed(
             ct.classic_construct, docs, root / "sharded.cobs_classic",
             ct.ClassicIndexParameters(term_size=k, num_hashes=h,
                                       false_positive_rate=0.3))
-        torch.cuda.synchronize()
+        sync_all(torch)
         launches = cs.LAUNCHES
+        on_cards = sorted(cs.LAUNCHES_ON)
     finally:
         ct.settings.construct_mesh = old
     require(launches > 0, "the sharded build did not launch the scatter")
+    require(on_cards == sorted({d.index for d in cards}),
+            f"the sharded build launched the scatter on cards {on_cards}")
     require(same_file(root / "sharded.cobs_classic",
                       root / "device.cobs_classic"),
-            "the 4-shard classic build != phase 10's single-device file")
+            "the 4-shard classic build != phase 10's file")
+    default = (construct_default_mesh(torch, cs, ct, root, k, h)
+               if torch.cuda.device_count() > 1 else None)
     hdr = read_classic_header(root / "device.cobs_classic")
     R1, n_docs = hdr.signature_size + 1, len(hdr.file_names)
     Wl = -(-n_docs // (32 * SHARDS))
@@ -2287,62 +2298,127 @@ def phase_construct_sharded(torch, cs, card: str, root: Path, k: int,
             docs_of.append(np.full(r.size, d + 32 * Wl - 4, np.int32))
         if sum(r.size for r in rows) >= UPDATE_CHUNK:
             break
-    r = torch.from_numpy(np.concatenate(rows)[:UPDATE_CHUNK]).to(DEVICE)
-    d_glob = torch.from_numpy(
-        np.concatenate(docs_of)[:UPDATE_CHUNK]).to(DEVICE)
-    n = r.numel()
+    r_host = torch.from_numpy(np.concatenate(rows)[:UPDATE_CHUNK])
+    d_host = torch.from_numpy(np.concatenate(docs_of)[:UPDATE_CHUNK])
+    n = r_host.numel()
     checks = {}
     for shard in (0, 1):
-        d = d_glob - shard * 32 * Wl
+        # on the shard's own card: a card other than cuda:0 for shard 1
+        # when four are visible
+        dev = mesh.devices[0][shard]
+        r = r_host.to(dev)
+        d = d_host.to(dev) - shard * 32 * Wl
         plan = cs.plan_scatter(n, R1, Wl)
         require(plan.binned, f"shard {shard}: {plan} is not binned")
-        words = torch.zeros((Wl, R1), dtype=torch.int32, device=DEVICE)
+        words = torch.zeros((Wl, R1), dtype=torch.int32, device=dev)
         got = cs.construct_scatter(words.clone(), r, d, plan)
         want = cs.construct_scatter_reference(words.clone(), r, d)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(dev)
         require(torch.equal(got, want), f"construct_scatter on shard "
-                                        f"{shard}'s words with foreign "
-                                        "updates: kernel != plain")
+                                        f"{shard}'s words ({dev}) with "
+                                        "foreign updates: kernel != plain")
         ok = (d >= 0) & (d < 32 * Wl)
         checks[shard] = (int((d < 0).sum()), int((d >= 32 * Wl).sum()),
                          int(ok.sum()))
         if shard == 1:
-            ms = median_device_ms(
-                torch, lambda i: cs.construct_scatter(words, r, d, plan))
-            plain_ms = median_device_ms(
-                torch, lambda i: cs.construct_scatter_reference(words, r,
-                                                                d), reps=3)
+            # CUDA events on the shard's card, where the kernel runs
+            with torch.cuda.device(dev):
+                ms = median_device_ms(
+                    torch, lambda i: cs.construct_scatter(words, r, d,
+                                                          plan))
+                plain_ms = median_device_ms(
+                    torch, lambda i: cs.construct_scatter_reference(
+                        words, r, d), reps=3)
             distinct = torch.unique(r[ok].long() * Wl
                                     + (d[ok].long() >> 5)).numel()
             bound_ms, bound_by = bound(8 * n + 8 * distinct, n)
         del got, want
-    del r, d_glob, words
+    del r, d, r_host, d_host, words
     torch.cuda.empty_cache()
-    print(f"phase 12 construction on {SHARDS} docs shards of {card} (phase "
-          f"10's corpus, make_mesh(1, {SHARDS}, [cuda:0] * {SHARDS})): "
-          f"classic build {wall:.3f} s wall (phase 10's single-device "
-          f"build {single_wall:.3f} s), {launches} scatter launches, file "
+    print(f"phase 12 construction on {SHARDS} docs shards, "
+          f"{cards_line(cards)} ({card}; phase 10's corpus, make_mesh(1, "
+          f"{SHARDS}, {[str(c) for c in cards]})): classic build "
+          f"{wall:.3f} s wall (phase 10's default build {single_wall:.3f} "
+          f"s), {launches} scatter launches on cards {on_cards}, file "
           f"byte-identical to phase 10's; stages: "
           + " ".join(f"{p}={sec:.3f}s" for p, sec in stages.items())
           + f"; words per shard [{Wl}, {R1}], "
           f"{SHARDS * Wl * R1 * 4 / 1e9:.3f} GB "
           "in all")
+    if default is not None:
+        print(default["line"])
     print(f"phase 12 construct_scatter on one shard's words [{Wl}, {R1}] "
           f"with a full chunk of {n} updates straddling shards 0 and 1 "
           f"(binned plan; shard 0: {checks[0][1]} past its end, shard 1: "
-          f"{checks[1][0]} below its base, dropped): kernel == plain on "
-          f"both; shard 1 {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{checks[1][0]} below its base, dropped), each on its shard's "
+          f"card ({mesh.devices[0][0]}, {mesh.devices[0][1]}): kernel == "
+          f"plain on both; shard 1 {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          "bound "
           f"{bound_ms:.4f} ms ({bound_by}, {checks[1][2]} updates kept, "
           f"{distinct} distinct words)")
-    return {"launches": launches, "wall": wall, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms}
+    return {"launches": launches, "cards": len(on_cards), "wall": wall,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+
+
+def construct_default_mesh(torch, cs, ct, root: Path, k: int,
+                           h: int) -> dict:
+    """On a host of several cards: `cobs classic-construct` on phase 10's
+    corpus with no mesh set must launch the scatter on every card
+    (construct/classic.py's default mesh), and the build with
+    settings.construct_mesh on cuda:0 alone must launch it there only;
+    both files byte-identical to phase 10's."""
+    import contextlib
+    import io
+
+    from cobs_tpu_torch.cli.main import main as cli_main
+    from cobs_tpu_torch.parallel.sharded import make_mesh
+
+    docs, want = root / "docs", root / "device.cobs_classic"
+    n_cards = torch.cuda.device_count()
+    require(ct.settings.construct_mesh is None,
+            "construct_mesh is set before the default build")
+    walls, cards = {}, {}
+    old = ct.settings.construct_mesh
+    try:
+        for how, mesh in (("default", None),
+                          ("one card", make_mesh(1, 1, mesh_cards(torch,
+                                                                  1)))):
+            ct.settings.construct_mesh = mesh
+            out = root / f"mesh_{how.replace(' ', '_')}.cobs_classic"
+            cs.LAUNCHES_ON.clear()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(io.StringIO()):
+                rc = cli_main(["classic-construct", "-k", str(k),
+                               "--num-hashes", str(h), "-f", "0.3",
+                               str(docs), str(out)])
+            sync_all(torch)
+            walls[how] = time.perf_counter() - t0
+            cards[how] = sorted(cs.LAUNCHES_ON)
+            require(rc == 0, f"classic-construct ({how}) exited {rc}")
+            require(same_file(out, want), f"classic-construct ({how}) != "
+                                          "phase 10's file")
+            out.unlink()
+    finally:
+        ct.settings.construct_mesh = old
+    require(cards["default"] == list(range(n_cards)),
+            f"the default build launched on cards {cards['default']}, "
+            f"not on all {n_cards}")
+    require(cards["one card"] == [0],
+            f"the one-card build launched on cards {cards['one card']}")
+    return {"walls": walls, "cards": cards, "line": (
+        f"phase 12 default build on {n_cards} cards: `cobs "
+        f"classic-construct` with no mesh set launched the scatter on "
+        f"cards {cards['default']} in {walls['default']:.3f} s; with "
+        f"construct_mesh on cuda:0 alone on cards {cards['one card']} in "
+        f"{walls['one card']:.3f} s; both files byte-identical to phase "
+        "10's")}
 
 
 def phase_sharded(torch, qk, dh, engine, Search, QueryClient, settings,
                   cli_main, card: str, rows: int = 1 << 21, B: int = 64,
                   n_batches: int = 16) -> dict:
-    """Phase 12: the document-sharded index on one card; see the module
-    docstring."""
+    """Phase 12: the document-sharded index, one shard a card when four
+    are visible, else four shards of cuda:0; see the module docstring."""
     from cobs_tpu_torch.experiments.dma_gather_bench import (
         median_device_ms,
     )
@@ -2355,12 +2431,13 @@ def phase_sharded(torch, qk, dh, engine, Search, QueryClient, settings,
     # entry()'s step against K1's plain version; dryrun_multichip's
     # sharded step (the scatter and K1 on 8-word shards after the
     # transpose, against numpy) and its serving surface on a (2, 2) mesh
+    cards = announce_mesh(torch)
     t0 = time.perf_counter()
     fn, args = dryrun.entry(DEVICE)
     require(torch.equal(fn(*args), qk.gather_and_count_reference(*args, 3)),
             "phase 12: dryrun.entry()'s step != K1's plain version")
-    dryrun.dryrun_multichip(SHARDS, cuda0(torch, SHARDS))
-    torch.cuda.synchronize()
+    dryrun.dryrun_multichip(SHARDS, cards)
+    sync_all(torch)
     dry_s = time.perf_counter() - t0
 
     W, docs, L, k = 384, 10_000, 1030, 100
@@ -2377,7 +2454,7 @@ def phase_sharded(torch, qk, dh, engine, Search, QueryClient, settings,
         t0 = time.perf_counter()
         out = [rl for bq in batches
                for rl in s.search_batch(bq, 0.0, num_results)]
-        torch.cuda.synchronize()
+        sync_all(torch)
         walls[what] = time.perf_counter() - t0
         return out
 
@@ -2389,31 +2466,46 @@ def phase_sharded(torch, qk, dh, engine, Search, QueryClient, settings,
     long_q = acgt_queries(np.random.default_rng(13), 4, 70_000)
     want_long = {nr: s1.search_batch(long_q, 0.0, nr) for nr in (k, 0)}
 
-    info, launches, shard_k, exact = {}, {}, {}, {}
+    info, launches, shard_k, exact, on_cards = {}, {}, {}, {}, {}
     for shape in ((1, SHARDS), (2, 2)):
-        mesh = make_mesh(*shape, cuda0(torch, SHARDS))
+        mesh = make_mesh(*shape, cards)
         t0 = time.perf_counter()
         s = Search(ix, mesh=mesh)
-        torch.cuda.synchronize()
+        sync_all(torch)
         shard_s = time.perf_counter() - t0
         si = s._scorers[0]
         Wl = si.shard_width
-        require(si.word_width == 512 and len(si._shards) == shape[1]
+        # one shard per (docs column, card): 4 on four cards, one a
+        # column when the cards repeat
+        want_shards = {(d, mesh.devices[b][d]) for b, d in
+                       mesh.local_cells()}
+        require(si.word_width == 512 and set(si._shards) == want_shards
                 and all(t.is_contiguous() and tuple(t.shape) ==
-                        (rows + 1, Wl) for t in si._shards.values()),
+                        (rows + 1, Wl) and t.device == dev
+                        for (_, dev), t in si._shards.items()),
                 f"phase 12 {shape}: shards "
-                f"{[tuple(t.shape) for t in si._shards.values()]}")
+                f"{[(key, tuple(t.shape)) for key, t in si._shards.items()]}")
         # one batch first (launch plans, pinned host blocks), then the
         # main path, with every count at 0 just before it
         s.search_batch(batches[0], 0.0, k)
         qk.LAUNCHES = dh.LAUNCHES = 0
+        qk.LAUNCHES_ON.clear()
+        dh.LAUNCHES_ON.clear()
         got = run(s, (shape, k), k)
         launches[shape, "batch"] = (qk.LAUNCHES, dh.LAUNCHES)
+        on_cards[shape] = (sorted(qk.LAUNCHES_ON), sorted(dh.LAUNCHES_ON))
+        want_cards = sorted({d.index for d in cards})
+        require(on_cards[shape] == (want_cards, want_cards),
+                f"phase 12 {shape}: K1 and hash launches on cards "
+                f"{on_cards[shape]}, not {want_cards}")
         require(launches[shape, "batch"] == (SHARDS * n_batches,) * 2,
                 f"phase 12 {shape} search_batch: launches "
                 f"{launches[shape, 'batch']}, not one per cell per batch")
         require(same_ranking(got, want[k]), f"phase 12 {shape}: top {k} "
                                             "!= the single-device ranking")
+        # one group first: its shapes' plans and allocations on every
+        # card (four cards warm four allocators), then the timed group
+        list(s.search_stream(queries, 0.0, k, batch_size=B))
         qk.LAUNCHES = dh.LAUNCHES = 0
         t0 = time.perf_counter()
         got = list(s.search_stream(queries, 0.0, k, batch_size=B))
@@ -2437,7 +2529,7 @@ def phase_sharded(torch, qk, dh, engine, Search, QueryClient, settings,
             for nr in (k, 0):
                 qk.LAUNCHES = dh.LAUNCHES = 0
                 got = s.search_batch(long_q, 0.0, nr)
-                torch.cuda.synchronize()
+                sync_all(torch)
                 launches[shape, "seq", nr] = (qk.LAUNCHES, dh.LAUNCHES)
                 require(launches[shape, "seq", nr] == (SHARDS, 0),
                         f"phase 12 sequence split: launches "
@@ -2459,25 +2551,26 @@ def phase_sharded(torch, qk, dh, engine, Search, QueryClient, settings,
 
     streamed = phase_sharded_files(torch, qk, engine, Search, QueryClient,
                                    cli_main, sh, make_mesh, queries, B, k,
-                                   rows, docs)
+                                   rows, docs, cards)
     # two runs, each shard count timed over SCALING_ITERS batches, so
     # that the spread between them stands beside the effect
     scaling = [benchmark_scaling(n_devices=SHARDS, iters=SCALING_ITERS,
-                                 devices=cuda0(torch, SHARDS))
+                                 devices=cards)
                for _ in range(2)]
-    torch.cuda.synchronize()
+    sync_all(torch)
 
     qps = {key: len(queries) / w for key, w in walls.items()}
     print(f"phase 12 sharded reference scale ({card}; phase 3's matrix, "
           f"{rows}+1 rows x {W} words, {docs} documents, {len(queries)} "
-          f"random {L} bp queries in batches of {B}; shards on ONE card: "
-          "correctness and per-shard cost, not scaling across cards): "
-          f"every ranking (top {k} and full, search_batch and "
-          "search_stream) == the single-device Search's")
+          f"random {L} bp queries in batches of {B}; shards on "
+          f"{cards_line(cards)}): every ranking (top {k} and full, "
+          "search_batch and search_stream) == the single-device Search's")
     for shape, (shard_s, Wl) in info.items():
         print(f"phase 12 mesh {shape}: word_width 512, {shape[1]} docs "
               f"shards of {Wl} words ({(rows + 1) * Wl * 4 / 1e9:.2f} GB "
-              f"each), made in {shard_s:.2f} s; launches (K1, hash) per "
+              f"each), made in {shard_s:.2f} s; search_batch launched K1 "
+              f"on cards {on_cards[shape][0]} and the hash kernel on "
+              f"{on_cards[shape][1]}; launches (K1, hash) per "
               f"{n_batches} batches: search_batch "
               f"{launches[shape, 'batch']}, search_stream (groups of "
               f"{settings.mega_batches}) {launches[shape, 'stream']}; top "
@@ -2501,7 +2594,7 @@ def phase_sharded(torch, qk, dh, engine, Search, QueryClient, settings,
           f"{SHARDS} x {k} candidates per query, one batch: "
           f"{shard_k['merge_ms']:.4f} ms (median of 20)")
     print(f"phase 12 dryrun ({card}): entry()'s step == K1's plain "
-          f"version; dryrun_multichip({SHARDS}, [cuda:0] * {SHARDS}) "
+          f"version; dryrun_multichip({SHARDS}, {cards_line(cards)}) "
           f"(scatter and K1 on 8-word shards == numpy, groups, serving "
           f"surface) passed; {dry_s:.2f} s")
     for shape, lines in exact.items():
@@ -2514,22 +2607,24 @@ def phase_sharded(torch, qk, dh, engine, Search, QueryClient, settings,
     a, b = scaling
     for n in sorted(a["per_n"]):
         print(f"phase 12 benchmark_scaling: {n} shards on "
-              f"{a['distinct'][n]} device ({card}): {a['per_n'][n]:.0f} / "
+              f"{a['distinct'][n]} device(s) ({card}): {a['per_n'][n]:.0f} / "
               f"{b['per_n'][n]:.0f} q/s in two runs (spread "
               f"{spread(a['per_n'][n], b['per_n'][n]):.3f}; B=16, 1,000 "
               f"terms, 4,096 documents per shard, {SCALING_ITERS} batches "
               f"each), cross-device copies per batch "
               f"{a['copies_per_batch'][n]:g} / {b['copies_per_batch'][n]:g}"
               f", exchanges per batch {a['exchanges_per_batch'][n]:g} / "
-              f"{b['exchanges_per_batch'][n]:g}")
+              f"{b['exchanges_per_batch'][n]:g}, CPU cores busy "
+              f"{a['cpu_util'][n]:.2f} / {b['cpu_util'][n]:.2f}")
     print(f"phase 12 benchmark_scaling: efficiency "
           f"{a['efficiency']:.3f} / {b['efficiency']:.3f} (spread "
           f"{spread(a['efficiency'], b['efficiency']):.3f}) against "
           f"predicted {a['predicted_efficiency']:.3f} (min(1, d / n): "
-          f"{SHARDS} shards share one card); K=8 groups "
+          f"{SHARDS} shards on {cards_line(cards)}); K=8 groups "
           f"{a['mega_qps']:.0f} / {b['mega_qps']:.0f} q/s")
     return {"launches": launches[(1, SHARDS), "batch"],
             "stream_launches": launches[(1, SHARDS), "stream"],
+            "cards": len(on_cards[1, SHARDS][0]),
             "batches": n_batches, **shard_k, **streamed}
 
 
@@ -2607,7 +2702,7 @@ def shard_shapes_exact(torch, qk, dh, engine, si, shape, batches,
         require(torch.equal(got, want), f"phase 12 {shape}: K1 != plain "
                                         f"({what}), {max_err(got, want)}")
         done.append(f"K1 on {what} (B={rows.shape[0]} T={rows.shape[1]} "
-                    f"W={shard.shape[1]})")
+                    f"W={shard.shape[1]}, {shard.device})")
 
     def cell_payload(queries, what):
         payloads = [engine.QueryBytes([q.encode() for q in bq])
@@ -2625,7 +2720,8 @@ def shard_shapes_exact(torch, qk, dh, engine, si, shape, batches,
         rows = dh.rows_from_queries(*args)
         require(torch.equal(rows, dh.rows_from_queries_reference(*args)),
                 f"phase 12 {shape}: hash kernel != plain ({what})")
-        done.append(f"hash kernel on {what} (B={nl} L={qdata.shape[1]})")
+        done.append(f"hash kernel on {what} (B={nl} L={qdata.shape[1]}, "
+                    f"{shard.device})")
         k1(rows, what)
 
     cell_payload(batches[:1], f"cell ({b}, {d}) of one batch")
@@ -2640,15 +2736,16 @@ def shard_shapes_exact(torch, qk, dh, engine, si, shape, batches,
         k1(torch.from_numpy(np.ascontiguousarray(
                rows[:, b * tl:(b + 1) * tl])).to(shard.device),
            f"the sequence split's cell ({b}, {d}) term slice")
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(shard.device)
     return done
 
 
 def phase_sharded_files(torch, qk, engine, Search, QueryClient, cli_main,
-                        sh, make_mesh, queries, B, k, rows, docs) -> dict:
+                        sh, make_mesh, queries, B, k, rows, docs,
+                        cards) -> dict:
     """Phase 12 (c), (e) and (f): phase 9's file written again, streamed
-    into 4 shards; two processes on a global mesh; `query` and `serve`
-    with --mesh."""
+    into 4 shards on `cards`; two processes on a global mesh; `query` and
+    `serve` with --mesh over the distinct cards."""
     path = ROOT / "bench_data" / "phase9_reference.cobs_classic"
     work = ROOT / "bench_data" / "phase12"
     shutil.rmtree(work, ignore_errors=True)
@@ -2661,7 +2758,7 @@ def phase_sharded_files(torch, qk, engine, Search, QueryClient, cli_main,
     try:
         return _phase_sharded_files(torch, qk, engine, Search, QueryClient,
                                     cli_main, sh, make_mesh, queries, B, k,
-                                    path, work)
+                                    path, work, cards)
     finally:
         path.unlink(missing_ok=True)
         shutil.rmtree(work, ignore_errors=True)
@@ -2685,13 +2782,17 @@ def child_corpus(root: Path) -> list[bytes]:
 
 
 def _phase_sharded_files(torch, qk, engine, Search, QueryClient, cli_main,
-                         sh, make_mesh, queries, B, k, path, work) -> dict:
+                         sh, make_mesh, queries, B, k, path, work,
+                         cards) -> dict:
     import contextlib
     import io
 
     import cobs_tpu_torch as ct
 
-    mesh = make_mesh(1, SHARDS, cuda0(torch, SHARDS))
+    mesh = make_mesh(1, SHARDS, cards)
+    # --mesh N of the CLI takes the first N cards: 4 on four cards, 1 on
+    # one
+    n_mesh = len(set(cards))
     held = Search(str(path))
     require(isinstance(held.index_files[0], engine.DeviceIndex),
             "phase 12: phase 9's file was not held on the card")
@@ -2703,15 +2804,19 @@ def _phase_sharded_files(torch, qk, engine, Search, QueryClient, cli_main,
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     st = Search(str(path), mesh=mesh, streamed=True)
-    torch.cuda.synchronize()
+    sync_all(torch)
     upload_s = time.perf_counter() - t0
     require(isinstance(st.index_files[0], engine.StreamedIndex)
-            and len(st._scorers[0]._shards) == SHARDS,
-            "phase 12: the streamed mesh Search did not hold 4 shards")
+            and len(st._scorers[0]._shards) == SHARDS
+            and [t.device for _, t in sorted(
+                st._scorers[0]._shards.items(), key=lambda kv: kv[0][0])]
+            == cards,
+            "phase 12: the streamed mesh Search did not hold 4 shards on "
+            f"{cards}")
     qk.LAUNCHES = 0
     got = [rl for i in range(0, len(queries), B)
            for rl in st.search_batch(queries[i:i + B], 0.0, k)]
-    torch.cuda.synchronize()
+    sync_all(torch)
     st_launches = qk.LAUNCHES
     require(same_ranking(got, want), "phase 12 streamed into shards: top "
                                      f"{k} != the held index's")
@@ -2723,7 +2828,7 @@ def _phase_sharded_files(torch, qk, engine, Search, QueryClient, cli_main,
     torch.cuda.empty_cache()
 
     # two processes on one global mesh of 4 cells, 2 per process, and
-    # `serve --mesh 1`, started together
+    # `serve --mesh N`, started together
     n_child = 4 * B
     seqs = child_corpus(work / "docs")
     single = work / "single.cobs_classic"
@@ -2750,7 +2855,8 @@ def _phase_sharded_files(torch, qk, engine, Search, QueryClient, cli_main,
         serve_log = open(work / "serve.log", "wb")
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "cobs_tpu_torch.cli.main", "serve",
-             "--mesh", "1", "-i", str(GOLDEN_DIR / "fasta7.cobs_classic"),
+             "--mesh", str(n_mesh), "-i",
+             str(GOLDEN_DIR / "fasta7.cobs_classic"),
              "--socket", str(sock), "-t", "0", "--linger-ms", "1"],
             cwd=ROOT, stdout=serve_log, stderr=subprocess.STDOUT))
         logs.append(serve_log)
@@ -2759,14 +2865,14 @@ def _phase_sharded_files(torch, qk, engine, Search, QueryClient, cli_main,
             out = io.StringIO()
             with contextlib.redirect_stdout(out), \
                     contextlib.redirect_stderr(io.StringIO()):
-                rc = cli_main(["query", "--mesh", "1", "-i",
+                rc = cli_main(["query", "--mesh", str(n_mesh), "-i",
                                str(GOLDEN_DIR / f"fasta7.cobs_{kind}"),
                                "-t", "0", GOLDEN_QUERY])
             lines = [tuple(x.split("\t")) for x in
                      out.getvalue().splitlines()]
             require(rc == 0 and [(a, int(b)) for a, b in lines]
-                    == GOLDEN_LINES, f"query --mesh 1 {kind}: rc {rc}, "
-                                     f"{lines}")
+                    == GOLDEN_LINES, f"query --mesh {n_mesh} {kind}: rc "
+                                     f"{rc}, {lines}")
         too_many = torch.cuda.device_count() + 1
         for cmd in ("query", "serve"):
             err = io.StringIO()
@@ -2786,10 +2892,10 @@ def _phase_sharded_files(torch, qk, engine, Search, QueryClient, cli_main,
             got = pairs([c.search(GOLDEN_QUERY, threshold=0.8),
                          c.search(GOLDEN_QUERY, threshold=0.0)])
         require(got == [GOLDEN_LINES[:1], GOLDEN_LINES],
-                f"serve --mesh 1: {got}")
+                f"serve --mesh {n_mesh}: {got}")
         procs[2].terminate()
         require(procs[2].wait(timeout=60) == 0,
-                "serve --mesh 1: SIGTERM did not give rc 0")
+                f"serve --mesh {n_mesh}: SIGTERM did not give rc 0")
         for i in range(2):
             rc = procs[i].wait(timeout=300)
             require(rc == 0, f"phase 12 child {i} exited {rc}")
@@ -2815,22 +2921,25 @@ def _phase_sharded_files(torch, qk, engine, Search, QueryClient, cli_main,
     child_lines = [line for i in range(2) for line in
                    (work / f"child{i}.log").read_text().splitlines()
                    if line.startswith("phase 12 child")]
-    print(f"phase 12 streamed into {SHARDS} shards (Search(path, mesh, "
-          f"streamed=True), phase 9's file): uploaded shard by shard in "
-          f"{upload_s:.2f} s; {len(queries)} queries top {k} ({st_launches} "
-          f"K1 launches) and {2 * B} full rankings == the held index's")
+    print(f"phase 12 streamed into {SHARDS} shards on {cards_line(cards)} "
+          f"(Search(path, mesh, streamed=True), phase 9's file): uploaded "
+          f"in {upload_s:.2f} s; {len(queries)} queries top {k} "
+          f"({st_launches} K1 launches) and {2 * B} full rankings == the "
+          "held index's")
     for line in child_lines:
         print(line)
-    print(f"phase 12 two processes and serve --mesh 1 done in "
-          f"{children_s:.1f} s; query --mesh 1 and serve --mesh 1 gave the "
-          f"reference's lines; --mesh {too_many} exited non-zero")
+    print(f"phase 12 two processes and serve --mesh {n_mesh} done in "
+          f"{children_s:.1f} s; query --mesh {n_mesh} and serve --mesh "
+          f"{n_mesh} gave the reference's lines; --mesh {too_many} exited "
+          "non-zero")
     return {"streamed_launches": st_launches}
 
 
 def sharded_child(rank: int, work: str) -> None:
     """One of phase 12's two processes (started by _phase_sharded_files):
     a gloo group through a file store, a global mesh of 4 cells (2 per
-    process, all on cuda:0); phase 9's file streamed into this process's
+    process: cards 2 rank and 2 rank + 1 when four are visible, else
+    cuda:0 twice); phase 9's file streamed into this process's
     own shards and 256 queries scored, equal to the parent's single-
     device rankings; then construction of its slice of a 20-document
     corpus and the federation, on one device and over the global mesh,
@@ -2847,8 +2956,9 @@ def sharded_child(rank: int, work: str) -> None:
     t0 = time.perf_counter()
     distributed.initialize(f"file://{work / 'store'}", num_processes=2,
                            process_id=rank, timeout=300)
+    cards = mesh_cards(torch, SHARDS)[2 * rank:2 * rank + 2]
     try:
-        mesh = distributed.global_mesh(devices=cuda0(torch, 2))
+        mesh = distributed.global_mesh(devices=cards)
         require(mesh.shape == {"batch": 1, "docs": SHARDS}
                 and mesh.local_cells() == [(0, 2 * rank),
                                            (0, 2 * rank + 1)],
@@ -2857,14 +2967,16 @@ def sharded_child(rank: int, work: str) -> None:
         s = ct.Search(spec["path"], mesh=mesh, streamed=True)
         torch.cuda.synchronize()
         upload_s = time.perf_counter() - t1
-        require(len(s._scorers[0]._shards) == 2,
-                f"child {rank} uploaded {len(s._scorers[0]._shards)} shards")
+        require(sorted(str(dev) for _, dev in s._scorers[0]._shards)
+                == [str(c) for c in cards],
+                f"child {rank} uploaded shards {list(s._scorers[0]._shards)}"
+                f", not one on each of {cards}")
         B, k, q = spec["B"], spec["k"], spec["queries"]
         qk.LAUNCHES = sharded.EXCHANGES = 0
         t1 = time.perf_counter()
         got = [rl for i in range(0, len(q), B)
                for rl in s.search_batch(q[i:i + B], 0.0, k)]
-        torch.cuda.synchronize()
+        sync_all(torch)
         score_s = time.perf_counter() - t1
         k1_launches = qk.LAUNCHES
         n_b = len(q) // B
@@ -2884,7 +2996,7 @@ def sharded_child(rank: int, work: str) -> None:
         fq = spec["fed_queries"]
         for how, m in (("one device", None),
                        ("global mesh", distributed.global_mesh(
-                           devices=cuda0(torch, 2)))):
+                           devices=cards))):
             fed = distributed.open_federated(prefix, 2, "classic", mesh=m)
             got = [[list(p) for p in rl]
                    for rl in pairs(fed.search_batch(fq, 0.0))]
@@ -2892,7 +3004,8 @@ def sharded_child(rank: int, work: str) -> None:
                                              f"on {how} != one build")
         distributed.barrier()
         print(f"phase 12 child {rank}: global mesh of {SHARDS} cells, 2 "
-              f"local, uploaded in {upload_s:.2f} s; {len(q)} queries top "
+              f"local on {[str(c) for c in cards]}, uploaded in "
+              f"{upload_s:.2f} s; {len(q)} queries top "
               f"{k} in {score_s:.2f} s == the single-device rankings, "
               f"{k1_launches} K1 launches and {n_b} exchanges for {n_b} "
               f"batches; construct + open_federated (one device and the "
@@ -3048,6 +3161,26 @@ def paper_build_child(root: str, out: str) -> None:
         "stages": construct_stages(text), "log_tail": text[-2000:]}))
 
 
+def build_rss(res: dict, pages: int) -> tuple[int, int, int]:
+    """(pages written when the build's fixed buffers are in place, the
+    build process's peak RSS up to then, its peak through the
+    construction), from paper_build_child's samples. Out of core, the
+    pages are written as they are built, so the process stops growing
+    once its fixed buffers are in place: the pinned upload rings of the
+    pages built at once, the document list, the workers' heaps. That is
+    once every page worker has built a page (`threads` pages, one in
+    flight a worker) and a quarter of the pages are written, leaving at
+    least half of them to judge the growth by."""
+    first = min(max(pages // 4, res["threads"]), pages // 2)
+    samples = res["samples"]
+    settled = max((r for _, r, n in samples if n <= first),
+                  default=res["base_rss"])
+    peak = max((r for t, r, _ in samples
+                if t <= res["steps"]["construct_s"]),
+               default=res["base_rss"])
+    return first, settled, peak
+
+
 def _paper_build(torch, cs, ps, root: Path, card: str) -> dict:
     """Phase 14 (a), (b): gen, then build through the harness in a fresh
     process (paper_build_child), then one subdirectory split
@@ -3088,19 +3221,10 @@ def _paper_build(torch, cs, ps, root: Path, card: str) -> dict:
             f"repack gave {len(wide.parameters)} pages of {wide.page_size} B")
     sig = sigs.pop()
     matrix_bytes = sig * hdr.page_size * pages
-    # out of core: the pages are written as they are built, so the
-    # process stops growing once its fixed buffers are in place (the
-    # pinned upload rings of the pages built at once, the document list,
-    # the workers' heaps); from a quarter of the pages written to the end
-    # of the construction its peak grows by less than half of what the
-    # remaining pages' matrix would add if it were held
     samples = res["samples"]
-    quarter = max((r for _, r, n in samples if n <= pages // 4),
-                  default=res["base_rss"])
-    peak = max((r for t, r, _ in samples if t <= steps["construct_s"]),
-               default=res["base_rss"])
-    late = peak - quarter
-    late_pages = pages - pages // 4
+    first, settled, peak = build_rss(res, pages)
+    late = peak - settled
+    late_pages = pages - first
     late_bytes = sig * hdr.page_size * late_pages
     rings = (min(res["threads"], pages) * UPLOAD_BUFFERS * 2 * 4
              * UPDATE_CHUNK)
@@ -3122,8 +3246,9 @@ def _paper_build(torch, cs, ps, root: Path, card: str) -> dict:
           f"3/4 of the pages written "
           + ", ".join(f"{r / 1e9:.3f}" for r in curve)
           + f" GB, through the construction "
-          f"{peak / 1e9:.3f} GB ("
-          f"+{late / 1e9:.3f} GB over the last {late_pages} pages, under "
+          f"{peak / 1e9:.3f} GB (with {first} pages written "
+          f"{settled / 1e9:.3f} GB, then +{late / 1e9:.3f} GB over the "
+          f"last {late_pages} pages, under "
           f"half of their {late_bytes / 1e9:.3f} GB of matrix; "
           f"{min(res['threads'], pages)} pinned upload rings "
           f"{rings / 1e9:.3f} GB), with repack "
@@ -3139,7 +3264,7 @@ def _paper_build(torch, cs, ps, root: Path, card: str) -> dict:
     return {"gen_s": gen_s, "build": steps, "scatter_launches": launches,
             "pages": pages, "sub_indices": res["sub_indices"],
             "matrix_bytes": matrix_bytes,
-            "rss": (res["base_rss"], quarter, peak),
+            "rss": (res["base_rss"], settled, peak),
             "page_size": hdr.page_size, "split": split}
 
 
@@ -3942,11 +4067,14 @@ def main() -> int:
     from cobs_tpu_torch.query.server import QueryServer
     from cobs_tpu_torch.settings import settings
 
-    card = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+    # every card's name and power limit, one line each; card 0's names
+    # the measurements
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip()
-    print(card)
+        check=True, timeout=60).stdout.strip().splitlines()
+    card = cards[0].strip()
+    print("\n".join(line.strip() for line in cards))
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     with phase_clock("build"):
@@ -4054,6 +4182,7 @@ def main() -> int:
             served_launches=served["launches"][0],
             served_batches=served["batches"],
             sharded_launches=mesh["launches"][0],
+            sharded_cards=mesh["cards"],
             sharded_stream_launches=mesh["stream_launches"][0],
             sharded_batches=mesh["batches"],
             sharded_streamed_launches=mesh["streamed_launches"],
@@ -4089,6 +4218,7 @@ def main() -> int:
             served_launches=served["launches"][1],
             served_batches=served["batches"],
             sharded_launches=mesh["launches"][1],
+            sharded_cards=mesh["cards"],
             sharded_stream_launches=mesh["stream_launches"][1],
             sharded_batches=mesh["batches"],
             cli_shim_launches=cli["shim"]["rows_from_queries"],
@@ -4114,6 +4244,7 @@ def main() -> int:
         "construct_scatter": dict(
             max_abs_err=0, library_ms=None,
             sharded_launches=con_mesh["launches"],
+            sharded_cards=con_mesh["cards"],
             cli_shim_launches=cli["shim"]["construct_scatter"],
             shard_ms=con_mesh["ms"], shard_plain_ms=con_mesh["plain_ms"],
             shard_bound_ms=con_mesh["bound_ms"],

@@ -26,6 +26,7 @@ documents' worth, then set bits in one or two strips that the L2 holds
 (`csrc/construct_scatter.cu`).
 """
 
+import collections
 import ctypes
 from typing import NamedTuple
 
@@ -34,6 +35,9 @@ import torch
 #: kernel launches made by `construct_scatter` (CUDA tensors only); a run
 #: resets it to show that its path went through the kernel
 LAUNCHES = 0
+#: the same launches by CUDA card index: on how many distinct cards a
+#: sharded run launched it
+LAUNCHES_ON: collections.Counter = collections.Counter()
 
 _THREADS = 256        # threads per block (csrc/construct_scatter.cu)
 _BLOCKS_PER_SM = 8    # grid-stride loop: enough blocks to fill the card
@@ -195,4 +199,5 @@ def construct_scatter(words: torch.Tensor, rows: torch.Tensor,
         raise RuntimeError(f"construct_scatter kernel launch failed: CUDA "
                            f"error {rc}")
     LAUNCHES += 1
+    LAUNCHES_ON[words.device.index] += 1
     return words

@@ -27,6 +27,7 @@ Not ported: the 2-bit query packing (`pack_queries_2bit`,
 kernel takes raw bytes.
 """
 
+import collections
 import ctypes
 import functools
 
@@ -40,6 +41,9 @@ from cobs_tpu_torch.ingest.util import sliding_windows
 #: kernel launches made by `rows_from_queries` (CUDA tensors only); a run
 #: resets it to show that its main path went through the kernel
 LAUNCHES = 0
+#: the same launches by CUDA card index: on how many distinct cards a
+#: sharded run launched it
+LAUNCHES_ON: collections.Counter = collections.Counter()
 
 _THREADS = 128              # terms per block (csrc/device_hash.cu)
 _SHARED_BYTES = 48 * 1024   # shared-memory limit without opt-in
@@ -214,6 +218,7 @@ def rows_from_queries(qdata: torch.Tensor, qlens: torch.Tensor,
         raise RuntimeError(f"device_hash kernel launch failed: CUDA error "
                            f"{rc}")
     LAUNCHES += 1
+    LAUNCHES_ON[qdata.device.index] += 1
     return out
 
 

@@ -14,6 +14,7 @@ doc = (page*W + word)*32 + bit. Row ids outside [0, R] count as the zero
 row in both.
 """
 
+import collections
 import ctypes
 import functools
 from typing import NamedTuple
@@ -23,6 +24,9 @@ import torch
 #: kernel launches made by `gather_and_count` (CUDA tensors only); a run
 #: resets it to show that its main path went through the kernel
 LAUNCHES = 0
+#: the same launches by CUDA card index: on how many distinct cards a
+#: sharded run launched it
+LAUNCHES_ON: collections.Counter = collections.Counter()
 
 #: geometry of csrc/gather_count.cu: 128 consumer threads own up to 4
 #: words each (a slice of <= 512 words), plus one producer warp
@@ -281,4 +285,5 @@ def gather_and_count(matrix: torch.Tensor, rows_idx: torch.Tensor,
         raise RuntimeError(f"gather_count kernel launch failed: CUDA error "
                            f"{rc}")
     LAUNCHES += 1
+    LAUNCHES_ON[matrix.device.index] += 1
     return out

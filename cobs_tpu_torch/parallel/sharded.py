@@ -37,6 +37,7 @@ the updates that fall in its documents (`construct/device.py` builds an
 index batch the same way).
 """
 
+import concurrent.futures
 import contextlib
 import dataclasses
 
@@ -68,6 +69,8 @@ EXCHANGES = 0
 #: split's sum of partial counts makes them, and only between distinct
 #: devices; per-shard scoring makes none
 CROSS_DEVICE_COPIES = 0
+#: host bytes staged per upload of a streamed shard's rows
+STAGE_BYTES = 64 << 20
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,10 +212,10 @@ class ShardedIndex:
 
     Takes a DeviceIndex (on any device; each shard's word columns are
     copied from its matrix) or a StreamedIndex (each shard's word columns
-    are read from the memory-mapped payload into one host buffer and
-    uploaded to the shard's device, so an index larger than one card's
-    memory becomes queryable as long as it fits the mesh's combined
-    memory).
+    are read from the memory-mapped payload in row chunks and uploaded to
+    the shard's device, so an index larger than one card's memory becomes
+    queryable as long as it fits the mesh's combined memory). The shards
+    of distinct devices are made at once, one thread per device.
 
     The word axis is padded to `word_align` x n_docs words, so every
     docs shard gets an equal slice of word_width / n_docs words (the
@@ -237,16 +240,27 @@ class ShardedIndex:
         self._shards = {}
         self._tables = {}
         self._masks = {}
+        by_dev = {}
         for b, d in mesh.local_cells():
             dev = mesh.devices[b][d]
-            if (d, dev) not in self._shards:
-                self._shards[d, dev] = (
-                    self._shard_from_matrix(d, dev)
-                    if hasattr(index, "matrix")
-                    else self._shard_from_streamed(d, dev))
+            if d not in by_dev.setdefault(dev, []):
+                by_dev[dev].append(d)
             if dev not in self._tables:
                 self._tables[dev] = device_hash_tables(
                     index.sig_sizes, index.row_offsets, dev)
+        make = (self._shard_from_matrix if hasattr(index, "matrix")
+                else self._shard_from_streamed)
+
+        def upload(dev):
+            return {(d, dev): make(d, dev) for d in by_dev[dev]}
+
+        # one thread per distinct device: the shards of several cards
+        # copy and upload at once (the host copy out of a mapped file
+        # runs without the interpreter lock)
+        with concurrent.futures.ThreadPoolExecutor(max(1, len(by_dev))) \
+                as pool:
+            for made in pool.map(upload, by_dev):
+                self._shards.update(made)
 
     @property
     def zero_row(self) -> int:
@@ -269,16 +283,39 @@ class ShardedIndex:
 
     def _shard_from_streamed(self, d: int, dev: torch.device
                              ) -> torch.Tensor:
+        """Docs shard d read from the mapped payload into `dev`, in row
+        chunks of about STAGE_BYTES through two host buffers (pinned for
+        CUDA): one is filled from the mmap while the other uploads, so a
+        shard of tens of GB needs no host buffer of its size."""
         st = self.index
-        host = torch.zeros((self.rows, self.shard_width), dtype=torch.int32,
-                           pin_memory=dev.type == "cuda")
-        b0 = d * self.shard_width * 4
-        b1 = min(b0 + self.shard_width * 4, st.page_size)
-        if b1 > b0:
-            host.numpy().view(np.uint8)[:st.total_rows, :b1 - b0] = \
-                st._payload[:, b0:b1]
+        Wl = self.shard_width
+        out = torch.zeros((self.rows, Wl), dtype=torch.int32, device=dev)
+        b0 = d * Wl * 4
+        b1 = min(b0 + Wl * 4, st.page_size)
+        if b1 <= b0:
+            return out
+        R = st.total_rows
+        step = max(1, min(R, STAGE_BYTES // (Wl * 4)))
+        cuda = dev.type == "cuda"
+        bufs = [torch.zeros((step, Wl), dtype=torch.int32, pin_memory=cuda)
+                for _ in range(2)]
+        events = [None, None]
         with _on(dev):
-            return host.to(dev)
+            for i, r0 in enumerate(range(0, R, step)):
+                n = min(step, R - r0)
+                j = i % 2
+                if events[j] is not None:
+                    events[j].synchronize()
+                bufs[j].numpy().view(np.uint8)[:n, :b1 - b0] = \
+                    st._payload[r0:r0 + n, b0:b1]
+                out[r0:r0 + n].copy_(bufs[j][:n], non_blocking=cuda)
+                if cuda:
+                    events[j] = torch.cuda.Event()
+                    events[j].record()
+            for ev in events:
+                if ev is not None:
+                    ev.synchronize()
+        return out
 
     def _mask(self, d: int, dev: torch.device) -> torch.Tensor:
         """bool [P * Wl * 32] on `dev`: the real-document slots of docs

@@ -8,6 +8,8 @@ port's own native library. Every output is an integer, so every
 comparison is exact. The JAX target is tests/test_streamed.py.
 """
 
+import contextlib
+import dataclasses
 import shutil
 import subprocess
 import sys
@@ -55,21 +57,34 @@ BUILT = ["classic", "compact", "compact_pages"]
 BASES = np.frombuffer(b"ACGT", np.uint8)
 
 
-@pytest.fixture(autouse=True)
-def _settings():
-    """Restore both packages' settings after every test; cobs_tpu hashes
-    on the host and writes no document caches."""
+@contextlib.contextmanager
+def _saved_settings():
+    """Both packages' settings as they were before the body; cobs_tpu
+    hashes on the host and writes no document caches inside it. Its CLI
+    sets load_complete_index for good (cobs_tpu/cli/main.py:309-311), so
+    that setting comes back too."""
     mine = (settings.streamed_host_score, settings.device_hash,
             settings.max_device_index_bytes, settings.load_complete_index)
     theirs = (jax_settings.streamed_host_score, jax_settings.device_hash,
-              jax_settings.disable_cache)
+              jax_settings.disable_cache, jax_settings.load_complete_index)
     jax_settings.device_hash = "host"
     jax_settings.disable_cache = True
-    yield
-    (settings.streamed_host_score, settings.device_hash,
-     settings.max_device_index_bytes, settings.load_complete_index) = mine
-    (jax_settings.streamed_host_score, jax_settings.device_hash,
-     jax_settings.disable_cache) = theirs
+    try:
+        yield
+    finally:
+        (settings.streamed_host_score, settings.device_hash,
+         settings.max_device_index_bytes,
+         settings.load_complete_index) = mine
+        (jax_settings.streamed_host_score, jax_settings.device_hash,
+         jax_settings.disable_cache,
+         jax_settings.load_complete_index) = theirs
+
+
+@pytest.fixture(autouse=True)
+def _settings():
+    """Restore both packages' settings after every test."""
+    with _saved_settings():
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -439,6 +454,28 @@ def test_cmd_query_streamed_and_load_complete_conflict(capsys,
     assert capsys.readouterr().out == want
     assert opened == [str(GOLDEN["classic"])]
     assert not settings.load_complete_index
+
+
+def test_settings_come_back_after_cobs_tpu_load_complete(capsys):
+    """cobs_tpu's `query --load-complete` sets its load_complete_index for
+    good; inside the fixture's save and restore it comes back, with every
+    other setting of both packages, so tests/test_streamed.py's
+    auto-streaming tests pass after this file in one process."""
+    def snapshot():
+        return ([getattr(settings, f.name)
+                 for f in dataclasses.fields(settings)],
+                [getattr(jax_settings, f.name)
+                 for f in dataclasses.fields(jax_settings)])
+
+    before = snapshot()
+    assert not jax_settings.load_complete_index
+    with _saved_settings():
+        assert jax_main(["query", "-i", str(GOLDEN["classic"]), "-t", "0",
+                         "--load-complete", GOLDEN_QUERY]) == 0
+        assert capsys.readouterr().out.splitlines()[0] == "sample1\t20"
+        assert jax_settings.load_complete_index
+    assert snapshot() == before
+    assert not jax_settings.load_complete_index
 
 
 def test_streamed_runs_without_jax():
